@@ -1,6 +1,6 @@
-"""dtcwt_tpu — a TPU-native dual-tree complex wavelet transform framework.
+"""dtcwt_tpu — a dual-tree complex wavelet transform framework in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
+A from-scratch JAX/XLA implementation with the capabilities of the
 reference ``dtcwt`` library (rjw57/dtcwt): forward/inverse 1-D, 2-D and 3-D
 DTCWT for every published biort/qshift wavelet family (including the
 rotationally-symmetric bandpass variants), phase-aware subband resampling,
@@ -28,8 +28,8 @@ __all__ = [
 # exactly one backend here (XLA), but the stack API is preserved so code
 # written against the reference keeps working; device/precision placement is
 # owned by JAX (jax.default_device, jax.config) rather than by this switch.
-# Parity surface: /root/reference/dtcwt/__init__.py:50-143.
-backend_name = "tpu"
+# Parity surface: upstream dtcwt/__init__.py:50-143.
+backend_name = "xla"
 
 
 def __getattr__(name):
@@ -40,7 +40,7 @@ def __getattr__(name):
 
 
 def push_backend(name: str):
-    """Compatibility no-op: the only backend is XLA ('tpu').  Accepts the
+    """Compatibility no-op: the only backend is XLA ('xla').  Accepts the
     reference names for drop-in compatibility."""
     from dtcwt_tpu.compat_backend import push_backend as _pb
     _pb(name)

@@ -2,7 +2,7 @@
 
 The numeric filter tables (``data/*.npz``) are Nick Kingsbury's published
 wavelet coefficients, identical to the ones shipped by the reference library
-(parity surface: ``/root/reference/dtcwt/coeffs.py:27-90``).  They are loaded
+(parity surface: upstream ``dtcwt/coeffs.py:27-90``).  They are loaded
 once per process and returned as immutable numpy float64 arrays; inside the
 transforms they become trace-time constants, so every data-dependent branch in
 the reference (filter-parity tests, ``sum(ha*hb)`` sign checks) resolves at

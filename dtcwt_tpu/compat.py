@@ -1,7 +1,7 @@
 """MATLAB-toolbox-style functional API.
 
 Thin wrappers mirroring the reference compatibility layer
-(``/root/reference/dtcwt/compat.py:32-288``): ``dtwavexfm``/``dtwaveifm``
+(upstream ``dtcwt/compat.py:32-288``): ``dtwavexfm``/``dtwaveifm``
 (1-D), ``dtwavexfm2``/``dtwaveifm2`` (+ ``...2b`` aliases, 2-D) and
 ``dtwavexfm3``/``dtwaveifm3`` (3-D).  They unpack the :class:`Pyramid` into
 ``(Yl, Yh[, Yscale])`` tuples for script-style use.  Prefer the Transform

@@ -1,7 +1,7 @@
 """Backend-stack compatibility layer.
 
 The reference library dispatches between numpy/opencl/tf backends with a
-mutable module-attribute stack (``/root/reference/dtcwt/__init__.py:50-131``).
+mutable module-attribute stack (upstream ``dtcwt/__init__.py:50-131``).
 This framework has one backend — XLA — so the stack is retained purely as an
 API-compatible shim: pushing any known backend name succeeds and is recorded,
 popping the base entry raises, and :func:`preserve_backend_stack` restores
@@ -15,9 +15,9 @@ import contextlib
 __all__ = ["backend_name", "push_backend", "pop_backend",
            "preserve_backend_stack", "KNOWN_BACKENDS"]
 
-KNOWN_BACKENDS = ("tpu", "numpy", "opencl", "tf")
+KNOWN_BACKENDS = ("xla", "numpy", "opencl", "tf")
 
-_STACK = ["tpu"]
+_STACK = ["xla"]
 
 
 def backend_name() -> str:

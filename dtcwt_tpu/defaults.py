@@ -1,5 +1,5 @@
 """Library-wide default wavelet families (reference:
-``/root/reference/dtcwt/defaults.py:1-3``)."""
+upstream ``dtcwt/defaults.py:1-3``)."""
 
 DEFAULT_BIORT = "near_sym_a"
 DEFAULT_QSHIFT = "qshift_a"

@@ -1,4 +1,4 @@
-"""Low-level compute primitives (filter banks, subband packing, kernels)."""
+"""Low-level compute primitives (filter banks, subband packing)."""
 
 from dtcwt_tpu.ops.fb import (
     colfilter, rowfilter, coldfilt, rowdfilt, colifilt, rowifilt,

@@ -2,9 +2,9 @@
 column/row filtering with symmetric-reflect ("repeat end samples") boundary
 handling.
 
-Behavioral parity surface: ``/root/reference/dtcwt/numpy/lowlevel.py``
+Behavioral parity surface: upstream ``dtcwt/numpy/lowlevel.py``
 (colfilter :47-80, coldfilt :82-154, colifilt :156-260).  The implementation
-is a fresh polyphase derivation designed for XLA/TPU:
+is a fresh polyphase derivation designed for XLA:
 
 * Shapes and filters are static at trace time, so the reference's
   data-dependent branches (``sum(ha*hb) > 0`` output-parity tests at
@@ -12,9 +12,10 @@ is a fresh polyphase derivation designed for XLA/TPU:
   resolve to Python-level constants here and emit straight-line code.
 * The dual-filter ops are expressed as even/odd *phase splits* of the
   symmetrically extended signal followed by small stride-1/2 valid
-  correlations — no strided scatter, no transposes: every op works along an
-  arbitrary axis of an arbitrarily batched array, so 2-D/3-D transforms and
-  ``vmap`` batches share one code path.
+  correlations — no strided scatter: every op works along an arbitrary axis
+  of an arbitrarily batched array, so 2-D/3-D transforms and ``vmap``
+  batches share one code path.  Minor-axis dual-filter work runs through a
+  transpose pair (see ``_dfilt_impl``).
 
 Closed forms (derived from the reference index algebra, verified bit-exactly
 against it in ``tests/test_fb_vs_reference.py``):
@@ -59,7 +60,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from dtcwt_tpu.utils import reflect
-from dtcwt_tpu.ops import engine
 
 __all__ = [
     "colfilter", "rowfilter", "coldfilt", "rowdfilt", "colifilt", "rowifilt",
@@ -164,14 +164,6 @@ def _filter_jit(hbytes: bytes, axis: int):
     return jax.jit(functools.partial(_filter_impl, h=h, axis=axis))
 
 
-def _lane_route(x, axis: int) -> bool:
-    """True when *axis* is the minor (lane) axis — the case the fast
-    engines reformulate as an operator matmul (ops/lane.py) instead of the
-    transpose pair both kernel paths otherwise pay."""
-    n = jnp.ndim(x)
-    return n >= 2 and _norm_axis(axis, n) == n - 1
-
-
 def filter_axis(x, h, axis: int):
     """Non-decimating filter along *axis* with symmetric edge extension.
 
@@ -179,24 +171,27 @@ def filter_axis(x, h, axis: int):
     length + 1 for even-length *h* (reference: ``numpy/lowlevel.py:47-80``).
     """
     h = _as_taps(h)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_fb
-        if _lane_route(x, axis) and lane.supported(x):
-            return lane.filter_lane(jnp.asarray(x), h)
-        y = pallas_fb.filter_axis(jnp.asarray(x), h, axis)
-        if y is not None:
-            return y
     return _filter_jit(h.tobytes(), axis)(x)
+
+
+def _minor(x, axis: int) -> bool:
+    """True when *axis* is the minor (contiguous) axis of a >= 2-D array."""
+    return x.ndim >= 2 and axis == x.ndim - 1
 
 
 def _dfilt_impl(x, ha: np.ndarray, hb: np.ndarray, axis: int):
     x = _asfloat(x)
     axis = _norm_axis(axis, x.ndim)
-    # TPU: per-tap stride-2 access along the minor (lane) axis is ~40x slower
-    # than along sublanes; route the last axis through a transpose instead.
-    # The optimization_barriers stop XLA from fusing the transpose back into
-    # the strided polyphase ops (which reintroduces the slow access pattern).
-    if x.ndim >= 2 and axis == x.ndim - 1:
+    # Along the minor axis the stride-4/stride-2 phase extractions below
+    # read memory with a stride and run at ~230-450 GB/s on an H100; the
+    # same extraction along a major axis reads whole contiguous rows.  So
+    # minor-axis work goes through a transpose pair instead, kept out of the
+    # filter fusions by optimization_barrier (XLA would otherwise fuse the
+    # transpose back into the strided slices).  Measured on an H100 80GB
+    # HBM3 at a 400 W limit: 4096^2 3-level round trip 2.79 ms with the
+    # transposes against 3.59 ms without; 256^3 3-D round trip 5.57 against
+    # 6.14 ms.
+    if _minor(x, axis):
         xt = lax.optimization_barrier(jnp.swapaxes(x, -1, -2))
         y = lax.optimization_barrier(_dfilt_impl(xt, ha, hb, x.ndim - 2))
         return jnp.swapaxes(y, -1, -2)
@@ -217,8 +212,8 @@ def dfilt_from_ext(ext, ha, hb, axis: int):
     # CONTIGUOUS slice of a quarter-phase stream Q_p[n] = ext[4n+p]:
     #   Ya[i] = sum_u rev(ha)[2u] Q2[i+u] + sum_u rev(ha)[2u+1] Q0[i+u+1]
     #   Yb[i] = sum_u rev(hb)[2u] Q3[i+u] + sum_u rev(hb)[2u+1] Q1[i+u+1]
-    # (XLA/TPU lowers stride-2 per-tap slices to gathers ~20x slower than
-    # contiguous shifts; the four stride-4 phase extractions happen once.)
+    # (the four stride-4 phase extractions happen once; every tap then reads
+    # a contiguous window).
     quarters = [lax.slice_in_dim(ext, p, None, stride=4, axis=axis)
                 for p in range(4)]
     n4 = r // 4
@@ -255,21 +250,13 @@ def dfilt_axis(x, ha, hb, axis: int):
         raise ValueError("Shapes of ha and hb must be the same")
     if ha.size % 2 != 0:
         raise ValueError("Lengths of ha and hb must be even")
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_fb
-        if _lane_route(x, axis) and lane.supported(x):
-            return lane.dfilt_lane(jnp.asarray(x), ha, hb)
-        y = pallas_fb.dfilt_axis(jnp.asarray(x), ha, hb, axis)
-        if y is not None:
-            return y
     return _dfilt_jit(ha.tobytes(), hb.tobytes(), axis)(x)
 
 
 def _ifilt_impl(x, ha: np.ndarray, hb: np.ndarray, axis: int):
     x = _asfloat(x)
     axis = _norm_axis(axis, x.ndim)
-    # See _dfilt_impl: keep the strided polyphase work on the sublane axis.
-    if x.ndim >= 2 and axis == x.ndim - 1:
+    if _minor(x, axis):     # transpose pair: see _dfilt_impl
         xt = lax.optimization_barrier(jnp.swapaxes(x, -1, -2))
         y = lax.optimization_barrier(_ifilt_impl(xt, ha, hb, x.ndim - 2))
         return jnp.swapaxes(y, -1, -2)
@@ -330,13 +317,6 @@ def ifilt_axis(x, ha, hb, axis: int):
         raise ValueError("Shapes of ha and hb must be the same")
     if ha.size % 2 != 0:
         raise ValueError("Lengths of ha and hb must be even")
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_fb
-        if _lane_route(x, axis) and lane.supported(x):
-            return lane.ifilt_lane(jnp.asarray(x), ha, hb)
-        y = pallas_fb.ifilt_axis(jnp.asarray(x), ha, hb, axis)
-        if y is not None:
-            return y
     return _ifilt_jit(ha.tobytes(), hb.tobytes(), axis)(x)
 
 
@@ -349,15 +329,12 @@ def ifilt_axis(x, ha, hb, axis: int):
 # Expressed as independent primitive calls each intermediate is read from HBM
 # twice on analysis and the branch sum costs an extra elementwise pass on
 # synthesis; the dual-stream forms read each input once and keep the sum in
-# registers, which is the difference between ~28 and ~19 volume-sized HBM
-# transfers per 3-D level.  Semantics are exactly
+# registers.  Semantics are exactly
 #
 #   filter2_axis(x, h0, h1)        == (filter_axis(x, h0), filter_axis(x, h1))
 #   dfilt2_axis(x, p0, p1)         == (dfilt_axis(x, *p0), dfilt_axis(x, *p1))
 #   filter2_sum_axis(a, b, g0, g1) == filter_axis(a, g0) + filter_axis(b, g1)
 #   ifilt2_sum_axis(a, b, p0, p1)  == ifilt_axis(a, *p0) + ifilt_axis(b, *p1)
-#
-# with the same Pallas-else-XLA engine dispatch as the single-stream ops.
 # ---------------------------------------------------------------------------
 
 def _filter2_impl(x, h0: np.ndarray, h1: np.ndarray, axis: int):
@@ -383,20 +360,13 @@ def filter2_axis(x, h0, h1, axis: int):
     """Both non-decimating branch filters of one tree stage in a single pass:
     ``(filter_axis(x, h0), filter_axis(x, h1))`` with the input read once."""
     h0, h1 = _as_taps(h0), _as_taps(h1)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_dual
-        if _lane_route(x, axis) and lane.supported(x):
-            return lane.filter2_lane(jnp.asarray(x), h0, h1)
-        y = pallas_dual.filter2_axis(jnp.asarray(x), h0, h1, axis)
-        if y is not None:
-            return y
     return _filter2_jit(h0.tobytes(), h1.tobytes(), axis)(x)
 
 
 def _dfilt2_impl(x, ha0, hb0, ha1, hb1, axis: int):
     x = _asfloat(x)
     axis = _norm_axis(axis, x.ndim)
-    if x.ndim >= 2 and axis == x.ndim - 1:
+    if _minor(x, axis):     # transpose pair: see _dfilt_impl
         xt = lax.optimization_barrier(jnp.swapaxes(x, -1, -2))
         y0, y1 = _dfilt2_impl(xt, ha0, hb0, ha1, hb1, x.ndim - 2)
         y0, y1 = lax.optimization_barrier((y0, y1))
@@ -428,13 +398,6 @@ def dfilt2_axis(x, pair0, pair1, axis: int):
         raise ValueError("Length of axis %d must be a multiple of 4" % axis)
     if ha0.size % 2 != 0:
         raise ValueError("Filter lengths must be even")
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_dual
-        if _lane_route(x, axis) and lane.supported(x):
-            return lane.dfilt2_lane(jnp.asarray(x), ha0, hb0, ha1, hb1)
-        y = pallas_dual.dfilt2_axis(jnp.asarray(x), ha0, hb0, ha1, hb1, axis)
-        if y is not None:
-            return y
     return _dfilt2_jit(ha0.tobytes(), hb0.tobytes(), ha1.tobytes(),
                        hb1.tobytes(), axis)(x)
 
@@ -463,26 +426,15 @@ def filter2_sum_axis(a, b, h0, h1, axis: int):
     if h0.size % 2 != h1.size % 2:
         # Odd filters emit r samples, even ones r+1 — the sum is undefined.
         raise ValueError("Filter length parities must match")
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_dual
-        if (_lane_route(a, axis) and lane.supported(a)
-                and jnp.shape(a) == jnp.shape(b)):
-            return lane.filter2_sum_lane(jnp.asarray(a), jnp.asarray(b),
-                                         h0, h1)
-        y = pallas_dual.filter2_sum_axis(jnp.asarray(a), jnp.asarray(b),
-                                         h0, h1, axis)
-        if y is not None:
-            return y
     return _filter2_sum_jit(h0.tobytes(), h1.tobytes(), axis)(a, b)
 
 
 def _ifilt2_sum_impl(a, b, ha0, hb0, ha1, hb1, axis: int):
     a, b = _asfloat(a), _asfloat(b)
     axis = _norm_axis(axis, a.ndim)
-    if a.ndim >= 2 and axis == a.ndim - 1:
-        at = jnp.swapaxes(a, -1, -2)
-        bt = jnp.swapaxes(b, -1, -2)
-        at, bt = lax.optimization_barrier((at, bt))
+    if _minor(a, axis):     # transpose pair: see _dfilt_impl
+        at, bt = lax.optimization_barrier((jnp.swapaxes(a, -1, -2),
+                                           jnp.swapaxes(b, -1, -2)))
         y = lax.optimization_barrier(
             _ifilt2_sum_impl(at, bt, ha0, hb0, ha1, hb1, a.ndim - 2))
         return jnp.swapaxes(y, -1, -2)
@@ -514,31 +466,18 @@ def ifilt2_sum_axis(a, b, pair0, pair1, axis: int):
         raise ValueError("Branch inputs must have the same shape")
     if ha0.size % 2 != 0:
         raise ValueError("Filter lengths must be even")
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import lane, pallas_dual
-        if _lane_route(a, axis) and lane.supported(a):
-            return lane.ifilt2_sum_lane(jnp.asarray(a), jnp.asarray(b),
-                                        ha0, hb0, ha1, hb1)
-        y = pallas_dual.ifilt2_sum_axis(jnp.asarray(a), jnp.asarray(b),
-                                        ha0, hb0, ha1, hb1, axis)
-        if y is not None:
-            return y
     return _ifilt2_sum_jit(ha0.tobytes(), hb0.tobytes(), ha1.tobytes(),
                            hb1.tobytes(), axis)(a, b)
 
 
 # ---------------------------------------------------------------------------
-# wide-extension dispatchers: the sharded transforms' entry points
+# wide-extension forms: the sharded transforms' entry points
 #
 # The spatially-sharded transforms (parallel/transform{1,2,3}d_dist) halo-
-# exchange a WIDE extension — the per-side width rounded up to a sublane
-# multiple — once per level and axis, then run every branch filter of the
-# level on it.  These wrappers give that pre-extended buffer the same
-# Pallas-else-XLA engine dispatch as the *_axis primitives (r2 verdict
-# item 3: the sharded paths ran XLA-only, wasting ~4x per-chip throughput
-# at scale): the Pallas from-ext kernels consume the wide extension
-# directly (plain aligned DMAs, no mirror fills), and the XLA closed forms
-# see the exact-width slice they always did — bit parity by construction.
+# exchange one extension per level and axis, as wide as the longest filter
+# of the level needs, then run every branch filter of the level on it.
+# Each filter sees the exact-width slice its closed form expects, so the
+# sharded results are bit-identical to the single-device ones.
 # ---------------------------------------------------------------------------
 
 def trim_ext(ext, side: int, need: int, axis: int):
@@ -554,11 +493,6 @@ def filter_from_wide_ext(ext, side: int, h, axis: int):
     """:func:`filter_from_ext` on an extension of width *side* >=
     ``len(h)//2`` per side."""
     h = _as_taps(h)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import pallas_fb
-        y = pallas_fb.filter_fromext_axis(jnp.asarray(ext), h, axis, side)
-        if y is not None:
-            return y
     return filter_from_ext(trim_ext(ext, side, h.size // 2, axis), h, axis)
 
 
@@ -566,12 +500,6 @@ def dfilt_from_wide_ext(ext, side: int, ha, hb, axis: int):
     """:func:`dfilt_from_ext` on an extension of width *side* >= ``len(ha)``
     per side."""
     ha, hb = _as_taps(ha), _as_taps(hb)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import pallas_fb
-        y = pallas_fb.dfilt_fromext_axis(jnp.asarray(ext), ha, hb, axis,
-                                         side)
-        if y is not None:
-            return y
     return dfilt_from_ext(trim_ext(ext, side, ha.size, axis), ha, hb, axis)
 
 
@@ -579,26 +507,14 @@ def ifilt_from_wide_ext(ext, side: int, ha, hb, axis: int):
     """:func:`ifilt_from_ext` on an extension of width *side* >=
     ``len(ha)//2`` per side."""
     ha, hb = _as_taps(ha), _as_taps(hb)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import pallas_fb
-        y = pallas_fb.ifilt_fromext_axis(jnp.asarray(ext), ha, hb, axis,
-                                         side)
-        if y is not None:
-            return y
     return ifilt_from_ext(trim_ext(ext, side, ha.size // 2, axis), ha, hb,
                           axis)
 
 
 def filter2_from_wide_ext(ext, side: int, h0, h1, axis: int):
-    """Both branch filters on one wide extension (one read on the Pallas
-    engines): ``(filter(ext|h0), filter(ext|h1))``."""
+    """Both branch filters on one wide extension:
+    ``(filter(ext|h0), filter(ext|h1))``."""
     h0, h1 = _as_taps(h0), _as_taps(h1)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import pallas_dual
-        y = pallas_dual.filter2_fromext_axis(jnp.asarray(ext), h0, h1,
-                                             axis, side)
-        if y is not None:
-            return y
     return (filter_from_ext(trim_ext(ext, side, h0.size // 2, axis), h0,
                             axis),
             filter_from_ext(trim_ext(ext, side, h1.size // 2, axis), h1,
@@ -609,13 +525,6 @@ def dfilt2_from_wide_ext(ext, side: int, pair0, pair1, axis: int):
     """Both decimating branch pairs on one wide extension."""
     ha0, hb0 = (_as_taps(h) for h in pair0)
     ha1, hb1 = (_as_taps(h) for h in pair1)
-    if (ha0.size == hb0.size == ha1.size == hb1.size
-            and engine.use_pallas()):
-        from dtcwt_tpu.ops import pallas_dual
-        y = pallas_dual.dfilt2_fromext_axis(jnp.asarray(ext), ha0, hb0,
-                                            ha1, hb1, axis, side)
-        if y is not None:
-            return y
     return (dfilt_from_ext(trim_ext(ext, side, ha0.size, axis), ha0, hb0,
                            axis),
             dfilt_from_ext(trim_ext(ext, side, ha1.size, axis), ha1, hb1,
@@ -623,15 +532,9 @@ def dfilt2_from_wide_ext(ext, side: int, pair0, pair1, axis: int):
 
 
 def filter2_sum_from_wide_ext(a, b, side: int, h0, h1, axis: int):
-    """``filter(a|h0) + filter(b|h1)`` on two wide extensions (the kernel
-    handles unequal tap counts; *side* must cover the longer filter)."""
+    """``filter(a|h0) + filter(b|h1)`` on two wide extensions (*side* must
+    cover the longer filter)."""
     h0, h1 = _as_taps(h0), _as_taps(h1)
-    if engine.use_pallas():
-        from dtcwt_tpu.ops import pallas_dual
-        y = pallas_dual.filter2_sum_fromext_axis(
-            jnp.asarray(a), jnp.asarray(b), h0, h1, axis, side)
-        if y is not None:
-            return y
     return (filter_from_ext(trim_ext(a, side, h0.size // 2, axis), h0, axis)
             + filter_from_ext(trim_ext(b, side, h1.size // 2, axis), h1,
                               axis))
@@ -641,13 +544,6 @@ def ifilt2_sum_from_wide_ext(a, b, side: int, pair0, pair1, axis: int):
     """``ifilt(a|pair0) + ifilt(b|pair1)`` on two wide extensions."""
     ha0, hb0 = (_as_taps(h) for h in pair0)
     ha1, hb1 = (_as_taps(h) for h in pair1)
-    if (ha0.size == hb0.size == ha1.size == hb1.size
-            and engine.use_pallas()):
-        from dtcwt_tpu.ops import pallas_dual
-        y = pallas_dual.ifilt2_sum_fromext_axis(
-            jnp.asarray(a), jnp.asarray(b), ha0, hb0, ha1, hb1, axis, side)
-        if y is not None:
-            return y
     return (ifilt_from_ext(trim_ext(a, side, ha0.size // 2, axis), ha0,
                            hb0, axis)
             + ifilt_from_ext(trim_ext(b, side, ha1.size // 2, axis), ha1,

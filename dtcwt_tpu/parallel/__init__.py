@@ -1,10 +1,11 @@
 """Multi-chip execution: device meshes, halo exchange, sharded transforms.
 
 The reference library is single-device (its only distributed component is an
-MPI scatter/gather example, ``/root/reference/examples/register_video.py``).
-Here parallelism is first-class and TPU-native: batch data-parallelism and
-spatial row-sharding over a ``jax.sharding.Mesh``, with filter-support halos
-exchanged over ICI via ``lax.ppermute`` and global reductions via ``psum``.
+MPI scatter/gather example, upstream ``examples/register_video.py``).
+Here parallelism is first-class: batch data-parallelism and spatial
+row-sharding over a ``jax.sharding.Mesh``, with filter-support halos
+exchanged between neighbouring shards via ``lax.ppermute`` and global
+reductions via ``psum``.
 """
 
 from dtcwt_tpu.parallel.mesh import make_mesh

@@ -1,15 +1,15 @@
 """Batch data-parallelism for any transform over a device mesh.
 
 The reference TF backend's scaling story is "fold images into the batch
-dimension" (``/root/reference/dtcwt/tf/transform2d.py:252-276``,
-``docs/backends.rst``).  The TPU-native equivalent is one sharding
+dimension" (upstream ``dtcwt/tf/transform2d.py:252-276``,
+``docs/backends.rst``).  The JAX equivalent is one sharding
 annotation: every transform here is batched over arbitrary leading axes, so
 data parallelism is just placing the batch axis on a mesh axis and letting
 XLA partition the program — no per-device code, no gather/scatter.
 
 :class:`BatchSharded` wraps any of Transform1d/2d/3d (or in fact any object
 with ``forward``/``inverse`` taking/returning pytrees whose leaves share a
-leading batch axis).  Works on a real TPU slice and on virtual CPU meshes.
+leading batch axis).  Works on a multi-GPU host and on virtual CPU meshes.
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@ Every filter primitive consumes a symmetric extension of its input
 interior shard boundaries must be fed the *neighbouring shard's* edge samples
 instead of a local reflection, while the two physical edges keep the
 reflect-with-repeated-end-samples rule.  The exchange is a pair of
-``lax.ppermute`` shifts over the mesh axis, which XLA maps onto ICI
-neighbour links (cf. the plan in SURVEY.md §2 "Parallelism inventory"; the
-boundary rule being preserved is ``/root/reference/dtcwt/utils.py:136-153``).
+``lax.ppermute`` shifts over the mesh axis, which XLA lowers to
+collective permutes between neighbouring shards (cf. the plan in SURVEY.md §2 "Parallelism inventory"; the
+boundary rule being preserved is upstream ``dtcwt/utils.py:136-153``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def _edge(x, n: int, axis: int, front: bool):
 def halo_exchange(x, n: int, axis_name: str, axis_size: int, axis: int = -2):
     """Extend the locally-sharded *axis* of *x* by *n* samples per side.
 
-    Interior sides receive the neighbour shard's edge rows over ICI
+    Interior sides receive the neighbour shard's edge rows
     (``ppermute``); the first/last shard's outer side applies symmetric
     reflection of its own edge, reproducing the unsharded
     ``symmetric_extend(global_x, n)`` exactly.  Requires ``n`` not larger

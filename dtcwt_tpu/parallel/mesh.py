@@ -18,8 +18,9 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
 
     ``shape=None`` puts every device on the leading (batch/data) axis.  The
     canonical layout for the sharded transforms is ``('data', 'rows')``:
-    batch-parallel over ``data``, image rows spatially sharded over ``rows``
-    (halos ride ICI neighbours, so ``rows`` should map to a physical ring).
+    batch-parallel over ``data``, image rows spatially sharded over ``rows``.
+    The cards of one GPU host are joined all to all, so the mesh shape
+    follows the algorithm, not a physical ring.
     """
     devices = list(jax.devices() if devices is None else devices)
     if shape is None:

@@ -2,13 +2,13 @@
 
 ``estimatereg``'s cost is dominated by the per-pixel 27-element Qtilde
 outer products over 6 subbands x levels, reduced into one global 27-vector
-(reference ``/root/reference/dtcwt/registration.py:346-350`` — "literally a
+(upstream ``dtcwt/registration.py:346-350`` — "literally a
 psum" per SURVEY.md §5).  Both stages are data-parallel over pixels, so the
 multi-chip version is the idiomatic JAX SPMD recipe: place the pyramid
 leaves on a :class:`jax.sharding.Mesh` with their row axis sharded, jit the
 *unchanged* estimator, and let XLA's partitioner split the elementwise
 phase/confidence math across devices, exchange the one-pixel neighbour
-halos, and lower the global reductions to ``psum`` over ICI.  The warp /
+halos, and lower the global reductions to ``psum``.  The warp /
 rescale stages of the refinement schedule run on gathered coarse levels
 (they are 1/16 the pixels or less — SURVEY §7.6's "all_gather the coarse
 levels" plan).

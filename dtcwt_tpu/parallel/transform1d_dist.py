@@ -3,7 +3,7 @@
 Long 1-D signals shard their *sample* axis across the mesh — the DTCWT
 analogue of sequence/context parallelism.  Before each level's filter pass
 the shards exchange only filter-support halos (<= 18 samples) via
-``lax.ppermute`` ring neighbours over ICI; the reflect boundary rule applies
+``lax.ppermute`` between neighbouring shards; the reflect boundary rule applies
 only on the physical first/last shard.  Once the decimated signal becomes
 too short to shard cleanly it is ``all_gather``-ed and the coarse levels run
 replicated (they are tiny).
@@ -46,14 +46,6 @@ def _hp_spec(sharded_spec, repl_spec, planes: bool, s: bool):
     return (base, base) if planes else base
 
 
-def _round8(n: int) -> int:
-    """Non-folded sharded passes exchange sublane-multiple halos so the
-    Pallas from-extension kernels see aligned DMAs (transform2d_dist has
-    the full rationale); the XLA paths trim back, so results are
-    bit-identical."""
-    return -(-n // 8) * 8
-
-
 def _sliced_ext(ext, halo: int, need: int, axis: int):
     if halo == need:
         return ext
@@ -63,9 +55,9 @@ def _sliced_ext(ext, halo: int, need: int, axis: int):
 
 def _folded_halo(f, hw: int, C: int, axis_name: str, axis_size: int):
     """Lane-folded analogue of :func:`halo_exchange`: interior *segment*
-    halos are lane-neighbour rows inside the shard, the shard's outermost
-    segments exchange ``[..., hw, C]`` edges with neighbouring shards over
-    ICI, and the physical signal ends reflect."""
+    halos are neighbouring columns inside the shard, the shard's outermost
+    segments exchange ``[..., hw, C]`` edges with neighbouring shards, and
+    the physical signal ends reflect."""
     r, W = f.shape[-2], f.shape[-1]
     head = f[..., :hw, :C]
     tail = f[..., r - hw:, W - C:]
@@ -106,12 +98,10 @@ class ShardedTransform1d:
         self._single = _t1.Transform1d(self.biort, self.qshift)
 
     def _plan(self, N: int, nlevels: int) -> List[bool]:
-        """Per level: does its filter pass run signal-sharded?  Halo
-        minima use the widened (sublane-multiple) widths the non-folded
-        sharded path actually exchanges (see transform2d_dist._round8)."""
+        """Per level: does its filter pass run signal-sharded?"""
         R = self._nrows
-        halo1 = _round8(max(v.size // 2 for v in self.biort))
-        halo2 = _round8(max(v.size for v in self.qshift))
+        halo1 = max(v.size // 2 for v in self.biort)
+        halo2 = max(v.size for v in self.qshift)
         plan = []
         n = N
         sharded = True
@@ -146,13 +136,11 @@ class ShardedTransform1d:
         if nlevels == 0:
             # degenerate case: no filtering — single-device semantics
             return self._single.forward(X, 0, layout=layout)
-        from dtcwt_tpu.ops import engine as _engine
-        return self._fwd_built(X.shape, X.dtype, nlevels, layout,
-                               _engine.trace_key())(X)
+        return self._fwd_built(X.shape, X.dtype, nlevels, layout)(X)
 
     @functools.lru_cache(maxsize=None)
     def _fwd_built(self, shape, dtype, nlevels: int,
-                   layout: str = "interleaved", ek=None):
+                   layout: str = "interleaved"):
         planes = layout == "planes"
         B, N, C = shape
         plan = self._plan(N, nlevels)
@@ -170,10 +158,10 @@ class ShardedTransform1d:
         out_specs = (sharded_spec if plan[-1] else repl_spec,
                      tuple(hp_spec(s) for s in plan))
 
-        # Lane-fold each shard's local signal so it spans S*C lanes rather
-        # than starving the VPU at C lanes (transforms/transform1d.py fold;
-        # here segment halos are local lane shifts and only the shard-edge
-        # segments ppermute, so ICI traffic is unchanged).
+        # Fold each shard's local signal into S*C columns as the
+        # single-device transform does (transforms/transform1d.py fold;
+        # here segment halos are local column shifts and only the shard-edge
+        # segments ppermute, so the exchanged bytes are unchanged).
         ffold = [False] * nlevels
         S = None
         base = _t1._fold_plan(N // R, C, nlevels, halo1, halo2)
@@ -216,9 +204,8 @@ class ShardedTransform1d:
                             _sliced_ext(ext, halo1, h0o.size // 2, -2),
                             h0o, -2)
                     elif cur_sharded:
-                        h1w = _round8(halo1)
-                        ext = halo_exchange(cur, h1w, ra, R, axis=-2)
-                        lo, hi = fb.filter2_from_wide_ext(ext, h1w, h0o,
+                        ext = halo_exchange(cur, halo1, ra, R, axis=-2)
+                        lo, hi = fb.filter2_from_wide_ext(ext, halo1, h0o,
                                                           h1o, -2)
                     else:
                         lo, hi = fb.filter2_axis(cur, h0o, h1o, -2)
@@ -235,10 +222,9 @@ class ShardedTransform1d:
                             _sliced_ext(ext, halo2, h0a.size, -2), h0b,
                             h0a, -2)
                     elif cur_sharded:
-                        h2w = _round8(halo2)
-                        ext = halo_exchange(cur, h2w, ra, R, axis=-2)
+                        ext = halo_exchange(cur, halo2, ra, R, axis=-2)
                         lo, hi = fb.dfilt2_from_wide_ext(
-                            ext, h2w, (h0b, h0a), (h1b, h1a), -2)
+                            ext, halo2, (h0b, h0a), (h1b, h1a), -2)
                     else:
                         lo, hi = fb.dfilt2_axis(cur, (h0b, h0a),
                                                 (h1b, h1a), -2)
@@ -294,15 +280,13 @@ class ShardedTransform1d:
             # degenerate case: identity (single-device semantics)
             return jnp.asarray(pyramid.lowpass)
         gm = None if gain_mask is None else jnp.asarray(gain_mask)
-        from dtcwt_tpu.ops import engine as _engine
         return self._inv_built(
             tuple(pyramid.lowpass.shape), shapes, pyramid.lowpass.dtype,
-            nlevels, "planes" if planes else "interleaved",
-            _engine.trace_key())(pyramid, gm)
+            nlevels, "planes" if planes else "interleaved")(pyramid, gm)
 
     @functools.lru_cache(maxsize=None)
     def _inv_built(self, low_shape, hp_shapes, dtype, nlevels: int,
-                   layout: str = "interleaved", ek=None):
+                   layout: str = "interleaved"):
         planes = layout == "planes"
         sdt = jnp.dtype(dtype)
         da, ra = self.data_axis, self.rows_axis
@@ -370,11 +354,10 @@ class ShardedTransform1d:
                               _sliced_ext(ext_hi, halo_i, g1a.size // 2,
                                           -2), g1b, g1a, -2))
                 elif cur_sharded:
-                    hiw = _round8(halo_i)
                     lo = fb.ifilt2_sum_from_wide_ext(
-                        halo_exchange(lo, hiw, ra, R, axis=-2),
-                        halo_exchange(hi, hiw, ra, R, axis=-2),
-                        hiw, (g0b, g0a), (g1b, g1a), -2)
+                        halo_exchange(lo, halo_i, ra, R, axis=-2),
+                        halo_exchange(hi, halo_i, ra, R, axis=-2),
+                        halo_i, (g0b, g0a), (g1b, g1a), -2)
                 else:
                     lo = fb.ifilt2_sum_axis(lo, hi, (g0b, g0a),
                                             (g1b, g1a), -2)
@@ -423,11 +406,10 @@ class ShardedTransform1d:
                            _sliced_ext(ext_hi, halo_f, g1o.size // 2, -2),
                            g1o, -2))
             elif cur_sharded:
-                hfw = _round8(halo_f)
                 out = fb.filter2_sum_from_wide_ext(
-                    halo_exchange(lo, hfw, ra, R, axis=-2),
-                    halo_exchange(hi, hfw, ra, R, axis=-2),
-                    hfw, g0o, g1o, -2)
+                    halo_exchange(lo, halo_f, ra, R, axis=-2),
+                    halo_exchange(hi, halo_f, ra, R, axis=-2),
+                    halo_f, g0o, g1o, -2)
             else:
                 out = fb.filter2_sum_axis(lo, hi, g0o, g1o, -2)
             out = _t1._unfold(out, S, C) if folded else out

@@ -11,7 +11,7 @@ axes"):
   ``rows`` and (optionally) image columns over ``cols``;
 * before each level's column (height-axis) pass, shards exchange
   filter-support halos (width = biort ``len(h)//2`` at level 1, qshift
-  ``len(h)`` at levels >= 2) with ``lax.ppermute`` over ICI along ``rows``;
+  ``len(h)`` at levels >= 2) with ``lax.ppermute`` along ``rows``;
   the row (width-axis) pass does the same along ``cols``.  Only the physical
   image edges apply the reflect boundary rule;
 * once a decimated axis becomes too small to shard cleanly (local extent not
@@ -50,15 +50,6 @@ from dtcwt_tpu.utils import compute_view as _comp
 __all__ = ["ShardedTransform2d"]
 
 logger = logging.getLogger(__name__)
-
-
-def _round8(n: int) -> int:
-    """Halo widths are exchanged rounded up to a sublane multiple so the
-    Pallas from-extension kernels (ops/pallas_fb.py `_load_slab_ext`) see
-    aligned DMAs; the XLA closed forms trim back to the exact width
-    (`fb.trim_ext`), so results are bit-identical either way.  The extra
-    rows are at most 7 per side — noise next to the shard body."""
-    return -(-n // 8) * 8
 
 
 def _axis_plan(extent: int, R: int, nlevels: int, halo1: int,
@@ -124,10 +115,8 @@ class ShardedTransform2d:
     # static planning: which levels stay sharded, per spatial axis?
     # ------------------------------------------------------------------
     def _halos(self) -> Tuple[int, int]:
-        # Widened like the exchanged halos (_round8) so the plan's minimum-
-        # extent checks match what halo_exchange will actually request.
-        halo1 = _round8(max(v.size // 2 for v in self.biort))
-        halo2 = _round8(max(v.size for v in self.qshift))
+        halo1 = max(v.size // 2 for v in self.biort)
+        halo2 = max(v.size for v in self.qshift)
         return halo1, halo2
 
     def _plan(self, H: int, W: int, nlevels: int) -> Tuple[List[bool],
@@ -179,14 +168,13 @@ class ShardedTransform2d:
             # (dtype rules + odd-size edge pad, empty highpasses)
             return self._single.forward(X, 0, include_scale=include_scale,
                                         layout=layout)
-        from dtcwt_tpu.ops import engine as _engine
         return self._fwd_built(X.shape, X.dtype, nlevels, layout,
-                               include_scale, _engine.trace_key())(X)
+                               include_scale)(X)
 
     @functools.lru_cache(maxsize=None)
     def _fwd_built(self, shape, dtype, nlevels: int,
                    layout: str = "interleaved",
-                   include_scale: bool = False, ek=None):
+                   include_scale: bool = False):
         planes = layout == "planes"
         B, H, W = shape
         rplan, cplan = self._plan(H, W, nlevels)
@@ -199,10 +187,10 @@ class ShardedTransform2d:
         qs = self.qshift
         h0a, h0b, h1a, h1b = qs[0], qs[1], qs[4], qs[5]
         h2a, h2b = (qs[8], qs[9]) if len(qs) == 12 else (None, None)
-        halo1 = _round8(max(v.size // 2 for v in (h0o, h1o)
-                            + ((h2o,) if h2o is not None else ())))
-        halo2 = _round8(max(v.size for v in (h0a, h1a)
-                            + ((h2a,) if h2a is not None else ())))
+        halo1 = max(v.size // 2 for v in (h0o, h1o)
+                    + ((h2o,) if h2o is not None else ()))
+        halo2 = max(v.size for v in (h0a, h1a)
+                    + ((h2a,) if h2a is not None else ()))
 
         # Input sharding: only shard an axis the first level can use.
         in_rows = ra if rplan[0] else None
@@ -230,11 +218,9 @@ class ShardedTransform2d:
             out_specs = out_specs + (
                 tuple(low_spec(l) for l in range(nlevels)),)
 
-        def hx(v, halo, axis, on):
-            """Wide halo extension of a sharded axis (per-side width a
-            sublane multiple, see _round8)."""
+        def hx(v, halo, axis):
+            """Halo extension of a sharded axis."""
             name, size = (ra, R) if axis == -2 else (ca, Cn)
-            del on
             return halo_exchange(v, halo, name, size, axis=axis)
 
         def local_fwd(x):
@@ -263,24 +249,20 @@ class ShardedTransform2d:
                         cur = jnp.concatenate([cur, cur[..., -1:]], axis=-1)
                     if not row_sharded and cur.shape[-2] % 2 != 0:
                         cur = jnp.concatenate([cur, cur[..., -1:, :]], axis=-2)
-                    # Dual-stream engine-dispatched calls (r2 verdict
-                    # item 3): one slab read feeds both branch filters on
-                    # the Pallas engines; the XLA path is bit-identical.
-                    # Sharded axes consume the wide halo exchange via the
-                    # from-extension kernels; unsharded axes use the
-                    # kernels' own in-VMEM mirror extension (no
-                    # materialized pad pass).
+                    # Dual-stream calls: one read feeds both branch
+                    # filters.  Sharded axes consume the halo exchange;
+                    # unsharded axes extend locally.
                     def f2(v, axis, on):
                         if on:
                             return fb.filter2_from_wide_ext(
-                                hx(v, halo1, axis, on), halo1, h0o, h1o,
+                                hx(v, halo1, axis), halo1, h0o, h1o,
                                 axis)
                         return fb.filter2_axis(v, h0o, h1o, axis)
 
                     def f1(v, axis, on):
                         if on:
                             return fb.filter_from_wide_ext(
-                                hx(v, halo1, axis, on), halo1, h2o, axis)
+                                hx(v, halo1, axis), halo1, h2o, axis)
                         return fb.filter_axis(v, h2o, axis)
 
                     lo, hi = f2(cur, -2, row_sharded)
@@ -288,7 +270,7 @@ class ShardedTransform2d:
                     if h2o is not None:
                         ba = f1(cur, -2, row_sharded)
                         q05 = (fb.filter_from_wide_ext(
-                                   hx(hi, halo1, -1, True), halo1, h0o, -1)
+                                   hx(hi, halo1, -1), halo1, h0o, -1)
                                if col_sharded
                                else fb.filter_axis(hi, h0o, -1))
                         q14 = f1(ba, -1, col_sharded)
@@ -304,7 +286,7 @@ class ShardedTransform2d:
                     def d2(v, axis, on):
                         if on:
                             return fb.dfilt2_from_wide_ext(
-                                hx(v, halo2, axis, on), halo2,
+                                hx(v, halo2, axis), halo2,
                                 (h0b, h0a), (h1b, h1a), axis)
                         return fb.dfilt2_axis(v, (h0b, h0a), (h1b, h1a),
                                               axis)
@@ -312,7 +294,7 @@ class ShardedTransform2d:
                     def d1(v, axis, on, hb_, ha_):
                         if on:
                             return fb.dfilt_from_wide_ext(
-                                hx(v, halo2, axis, on), halo2, hb_, ha_,
+                                hx(v, halo2, axis), halo2, hb_, ha_,
                                 axis)
                         return fb.dfilt_axis(v, hb_, ha_, axis)
 
@@ -382,15 +364,13 @@ class ShardedTransform2d:
             # degenerate case: identity (single-device semantics)
             return jnp.asarray(pyramid.lowpass)
         gm = None if gain_mask is None else jnp.asarray(gain_mask)
-        from dtcwt_tpu.ops import engine as _engine
         return self._inv_built(
             tuple(pyramid.lowpass.shape), shapes, pyramid.lowpass.dtype,
-            nlevels, "planes" if planes else "interleaved",
-            _engine.trace_key())(pyramid, gm)
+            nlevels, "planes" if planes else "interleaved")(pyramid, gm)
 
     @functools.lru_cache(maxsize=None)
     def _inv_built(self, low_shape, hp_shapes, dtype, nlevels: int,
-                   layout: str = "interleaved", ek=None):
+                   layout: str = "interleaved"):
         planes = layout == "planes"
         sdt = jnp.dtype(dtype)
         da, ra, ca = self.data_axis, self.rows_axis, self.cols_axis
@@ -401,10 +381,10 @@ class ShardedTransform2d:
         qs = self.qshift
         g0a, g0b, g1a, g1b = qs[2], qs[3], qs[6], qs[7]
         g2a, g2b = (qs[10], qs[11]) if len(qs) == 12 else (None, None)
-        halo2 = _round8(max(v.size // 2 for v in (g0a, g1a)
-                            + ((g2a,) if g2a is not None else ())))
-        halo1 = _round8(max(v.size // 2 for v in (g0o, g1o)
-                            + ((g2o,) if g2o is not None else ())))
+        halo2 = max(v.size // 2 for v in (g0a, g1a)
+                    + ((g2a,) if g2a is not None else ()))
+        halo1 = max(v.size // 2 for v in (g0o, g1o)
+                    + ((g2o,) if g2o is not None else ()))
 
         # Per-level, per-axis plan: synthesis at level l runs sharded on an
         # axis when every finer level (the sharded *suffix* in synthesis
@@ -454,7 +434,7 @@ class ShardedTransform2d:
 
             @jax.jit
             def run_repl(pyr, gain_mask):
-                return single._inverse_impl(pyr, gain_mask)
+                return single._inverse_body(pyr, gain_mask)
             return run_repl
 
         def spec(r_on, c_on, hp=False):
@@ -498,10 +478,9 @@ class ShardedTransform2d:
             for level in range(nlevels - 1, 0, -1):
                 lh, hl, hh = quads(Yh[level])
 
-                # Fused branch-pair merges (two slab reads -> one summed
-                # output per stage on the fast engines); sharded axes eat
-                # the wide halo exchange, unsharded axes use the kernels'
-                # in-VMEM mirror extension.
+                # Fused branch-pair merges (one summed output per stage);
+                # sharded axes consume the halo exchange, unsharded axes
+                # extend locally.
                 def i2(va, vb, pa, pb, axis, on):
                     if on:
                         return fb.ifilt2_sum_from_wide_ext(

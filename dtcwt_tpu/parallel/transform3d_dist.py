@@ -2,11 +2,11 @@
 
 Giant volumes are the reference library's worst-scaling case — its 3-D
 transform loops over 2-D planes in Python
-(``/root/reference/dtcwt/numpy/transform3d.py:37-206``) and a volume must
+(upstream ``dtcwt/numpy/transform3d.py:37-206``) and a volume must
 fit one host.  Here the *depth* axis of a global ``[B, D, H, W]`` volume is
 sharded across a mesh axis: the H/W filter passes of every level are
 shard-local, and the depth-axis pass exchanges filter-support halos
-(<= 18 samples) with ``lax.ppermute`` ring neighbours over ICI, with the
+(<= 18 samples) with ``lax.ppermute`` between neighbouring shards, with the
 reflect boundary rule applied only on the physical first/last shard.  Once
 the decimated depth becomes too small to shard cleanly the volume is
 ``all_gather``-ed and the remaining coarse levels run replicated (they are
@@ -30,7 +30,6 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
-from dtcwt_tpu.ops import engine as _engine
 from dtcwt_tpu.ops import fb
 from dtcwt_tpu.ops.packing import cube2c, c2cube, c2cube_planes
 from dtcwt_tpu.parallel.halo import halo_exchange
@@ -44,13 +43,6 @@ from dtcwt_tpu.transforms.transform2d import (
 __all__ = ["ShardedTransform3d"]
 
 logger = logging.getLogger(__name__)
-
-
-def _round8(n: int) -> int:
-    """Sharded passes exchange sublane-multiple halos so the Pallas
-    from-extension kernels see aligned DMAs (transform2d_dist._round8 has
-    the full rationale); XLA paths trim back — bit parity either way."""
-    return -(-n // 8) * 8
 
 
 def _sliced_ext(ext, halo: int, need: int, axis: int):
@@ -102,10 +94,8 @@ class ShardedTransform3d:
         """Per level: does the filter pass along a spatial axis of global
         extent *n* run sharded over a mesh axis of *Rax* devices?"""
         h0o, h1o = self.biort[0], self.biort[2]
-        # widened like the exchanged halos (_round8) so the minimum-extent
-        # checks match what halo_exchange will actually request
-        halo1 = _round8(max(h0o.size // 2, h1o.size // 2))
-        halo2 = _round8(max(self.qshift[0].size, self.qshift[4].size))
+        halo1 = max(h0o.size // 2, h1o.size // 2)
+        halo2 = max(self.qshift[0].size, self.qshift[4].size)
         div = self.ext_mode
         plan = []
         d = n
@@ -157,15 +147,14 @@ class ShardedTransform3d:
             return self._single.forward(X, 0, include_scale=include_scale,
                                         discard_level_1=discard_level_1,
                                         layout=layout)
-        from dtcwt_tpu.ops import engine as _engine
         return self._fwd_built(X.shape, X.dtype, nlevels,
                                bool(discard_level_1), layout,
-                               include_scale, _engine.trace_key())(X)
+                               include_scale)(X)
 
     @functools.lru_cache(maxsize=None)
     def _fwd_built(self, shape, dtype, nlevels: int, discard_level_1: bool,
                    layout: str = "interleaved",
-                   include_scale: bool = False, ek=None):
+                   include_scale: bool = False):
         planes = layout == "planes"
         B, D, H, W = shape
         plan = self._plan(D, nlevels)
@@ -176,8 +165,8 @@ class ShardedTransform3d:
         h0o, h1o = self.biort[0], self.biort[2]
         q = self.qshift
         h0a, h0b, h1a, h1b = q[0], q[1], q[4], q[5]
-        halo1 = _round8(max(h0o.size // 2, h1o.size // 2))
-        halo2 = _round8(max(h0a.size, h1a.size))
+        halo1 = max(h0o.size // 2, h1o.size // 2)
+        halo2 = max(h0a.size, h1a.size)
         div = self.ext_mode
         rep = 1 if div == 4 else 2
 
@@ -215,10 +204,9 @@ class ShardedTransform3d:
             out_specs = out_specs + (
                 tuple(vspec(plan[l], rplan[l]) for l in range(nlevels)),)
 
-        # Dual-stream engine-dispatched tree stages (r2 verdict item 3):
-        # one slab read feeds both branch filters; sharded axes consume the
-        # wide halo exchange via the from-extension kernels, replicated
-        # axes use the kernels' in-VMEM mirror extension.
+        # Dual-stream tree stages: one read feeds both branch filters;
+        # sharded axes consume the halo exchange, replicated axes extend
+        # locally.
         def _axf(axis, sharded):
             return ((ra, R) if axis == -3 else (rr, Rr)) if sharded else None
 
@@ -289,9 +277,7 @@ class ShardedTransform3d:
                         # all spatial axes replicated on this level (incl.
                         # batch-only meshes and the degenerate 1x1 case):
                         # the shard-local volume IS the global one, so the
-                        # single-device fused level-1 kernels apply
-                        # verbatim (r4 verdict item: the sharded path must
-                        # not lag the fused kernel set)
+                        # single-device level-1 stage applies verbatim
                         lll, hp = Transform3d._level1_fwd(
                             cur, h0o, h1o, planes=planes)
                         if planes:
@@ -314,9 +300,8 @@ class ShardedTransform3d:
                     Yh.append(Transform3d._pack_octants(
                         [oct_[o] for o in _OCTANTS], planes, dtype=sdt))
                 elif not d_sharded and not r_sharded:
-                    # replicated level >= 2: single-device fused stage
-                    # (two-sided MXU (H, W) kernel + engine-dispatched
-                    # depth passes), identical semantics incl. its pads
+                    # replicated level >= 2: the single-device stage,
+                    # identical semantics incl. its pads
                     lll, hp = self._single._level2_fwd(
                         cur, h0a, h0b, h1a, h1b, planes=planes)
                     if planes:
@@ -388,15 +373,13 @@ class ShardedTransform3d:
         if nlevels == 0:
             # degenerate case: identity (single-device semantics)
             return jnp.asarray(pyramid.lowpass)
-        from dtcwt_tpu.ops import engine as _engine
         return self._inv_built(
             tuple(pyramid.lowpass.shape), shapes, pyramid.lowpass.dtype,
-            nlevels, "planes" if planes else "interleaved",
-            _engine.trace_key())(pyramid)
+            nlevels, "planes" if planes else "interleaved")(pyramid)
 
     @functools.lru_cache(maxsize=None)
     def _inv_built(self, low_shape, hp_shapes, dtype, nlevels: int,
-                   layout: str = "interleaved", ek=None):
+                   layout: str = "interleaved"):
         planes = layout == "planes"
         sdt = jnp.dtype(dtype)
         da, ra = self.data_axis, self.depth_axis
@@ -405,8 +388,8 @@ class ShardedTransform3d:
         g0o, g1o = self.biort[1], self.biort[3]
         q = self.qshift
         g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
-        halo2 = _round8(max(g0a.size // 2, g1a.size // 2))
-        halo1 = _round8(max(g0o.size // 2, g1o.size // 2))
+        halo2 = max(g0a.size // 2, g1a.size // 2)
+        halo1 = max(g0o.size // 2, g1o.size // 2)
 
         def gshape(level, dim):
             """Global extent of level's subband grid along volume axis
@@ -456,7 +439,7 @@ class ShardedTransform3d:
 
             @jax.jit
             def run_repl(pyr):
-                return single._inverse_impl(pyr)
+                return single._inverse_body(pyr)
             return run_repl
 
         def spec(d_on, r_on, hp=False):
@@ -474,9 +457,8 @@ class ShardedTransform3d:
             else spec(plan[l], rplan[l], hp=True)
             for l in range(nlevels))
 
-        # Fused branch-pair merges, engine-dispatched (two slab reads ->
-        # one summed output); sharded axes eat the wide halo exchange,
-        # replicated axes use the kernels' in-VMEM mirror extension.
+        # Fused branch-pair merges (one summed output); sharded axes
+        # consume the halo exchange, replicated axes extend locally.
         def _axf(axis, on):
             return ((ra, R) if axis == -3 else (rr, Rr)) if on else None
 
@@ -607,18 +589,9 @@ class ShardedTransform3d:
                     Yl = lowfilt(Yl, -3, d_on)
                     Yl = fb.filter_axis(Yl, g0o, -1)
                 else:
-                    fused = None
-                    if not d_on and not r_on and _engine.use_pallas():
-                        level0 = ((_comp(Yh[0][0]), _comp(Yh[0][1]))
-                                  if planes else Yh[0])
-                        fused = Transform3d._level1_inv_fused(
-                            Yl, level0, g0o, g1o)
-                    if fused is not None:
-                        Yl = fused
-                    else:
-                        oct_ = octs(Yh[0])
-                        oct_[(0, 0, 0)] = Yl
-                        Yl = synth1(oct_, d_on, r_on)
+                    oct_ = octs(Yh[0])
+                    oct_[(0, 0, 0)] = Yl
+                    Yl = synth1(oct_, d_on, r_on)
             return Yl.astype(sdt)
 
         shmapped = jax.shard_map(

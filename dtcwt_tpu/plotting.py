@@ -1,6 +1,6 @@
 """Plotting conveniences for DTCWT coefficients.
 
-Parity surface: ``/root/reference/dtcwt/plotting.py:15-72``
+Parity surface: upstream ``dtcwt/plotting.py:15-72``
 (``overlay_quiver``).  matplotlib is an optional dependency: importing this
 module without it raises only when the plot function is called.
 """

@@ -2,13 +2,13 @@
 
 Implements the locally-affine motion estimator of Chen & Kingsbury
 ("Efficient Registration of Nonrigid 3-D Bodies", IEEE TIP 2012; 2-D form),
-with behavioral parity surface ``/root/reference/dtcwt/registration.py``
+with behavioral parity surface upstream ``dtcwt/registration.py``
 (EXPECTED_SHIFTS :30, phasegradient :32-76, confidence :84-136,
 qtildematrices :141-212, solvetransform :214-249, warptransform :274-302,
 estimatereg :304-372, velocityfield :374-395, warphighpass :397-409, warp
 :411-420, _boxfilter :422-446).
 
-TPU-first design: the entire ``estimatereg`` schedule — initial global solve
+Device-side design: the entire ``estimatereg`` schedule — initial global solve
 plus every refinement stage (warp -> Qtilde accumulation -> box filter ->
 rescale -> batched 6x6 solve) — compiles into ONE XLA program per pyramid
 shape; the level schedule is static Python, per-pixel 27-element outer
@@ -201,8 +201,8 @@ def warptransform(t, avecs, levels, method=None):
 
 def _shift_reflect(X, delta: int, axis: int):
     """X shifted by *delta* along *axis* with symmetric-reflect boundary —
-    static slices + a small edge flip (a reflect-index ``take`` lowers to a
-    slow gather on TPU)."""
+    static slices + a small edge flip (a reflect-index ``take`` would lower
+    to a gather)."""
     n = X.shape[axis]
     sl = lambda a, b: jax.lax.slice_in_dim(X, a, b, axis=axis)
     if delta > 0:

@@ -1,7 +1,7 @@
 """Rescaling / re-sampling of low- and highpass subbands, including the
 phase-unwrap variants for complex highpass coefficients.
 
-Behavioral parity surface: ``/root/reference/dtcwt/sampling.py`` (sample
+Behavioral parity surface: upstream ``dtcwt/sampling.py`` (sample
 :105-129, rescale :131-165, phase tables :27-34, _phase_image :167-190,
 sample_highpass :192-222, rescale_highpass :224-278, upsample :280-391).
 
@@ -107,7 +107,7 @@ def _interp_matrix(src: int, dst: int, method: str) -> np.ndarray:
     """(dst, src) separable interpolation operator for the regular rescale
     grid, with the samplers' symmetric-reflect index folding baked in.
     Identical weights/taps to the gather samplers — but a rescale is a
-    *separable regular-grid* resampling, so it runs as two (MXU) matmuls
+    *separable regular-grid* resampling, so it runs as two matrix products
     instead of per-tap 2-D gathers."""
     cs = (float(src) / float(dst)) * (np.arange(dst) + 0.5) - 0.5
     A = np.zeros((dst, src))
@@ -150,8 +150,11 @@ def _rescale_arr(im, shape, method):
 
 
 def _rescale_real(im, ay, ax):
-    tmp = jnp.tensordot(ay, im, axes=(1, 0))          # [dh, sw, C...]
-    out = jnp.tensordot(ax, tmp, axes=(1, 1))         # [dw, dh, C...]
+    # Full f32 precision: a default-precision f32 dot may run in TF32 on
+    # the GPU, which keeps ~3 decimal digits of the interpolation weights.
+    hi = jax.lax.Precision.HIGHEST
+    tmp = jnp.tensordot(ay, im, axes=(1, 0), precision=hi)   # [dh, sw, C...]
+    out = jnp.tensordot(ax, tmp, axes=(1, 1), precision=hi)  # [dw, dh, C...]
     return jnp.swapaxes(out, 0, 1)
 
 
@@ -172,8 +175,6 @@ def _phase_image(xs, ys, unwrap=True, sbs=None):
     slices = []
     for sb in sbs:
         ph = DTHETA_DX_2D[sb] * xs + DTHETA_DY_2D[sb] * ys
-        # exp(sign*j*ph) as cos + j sin: avoids complex scalar constants,
-        # whose host->device transfer is UNIMPLEMENTED on some backends.
         slices.append(jax.lax.complex(jnp.cos(ph), sign * jnp.sin(ph)))
     return jnp.stack(slices, axis=-1)
 

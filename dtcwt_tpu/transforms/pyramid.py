@@ -1,6 +1,6 @@
 """The transform-domain container: a JAX pytree.
 
-Parity surface: ``/root/reference/dtcwt/numpy/common.py:5-33`` (attributes
+Parity surface: upstream ``dtcwt/numpy/common.py:5-33`` (attributes
 ``lowpass``, ``highpasses``, ``scales``).  Unlike the reference's three
 backend-specific containers (NumPy arrays / OpenCL device handles / lazy TF
 graph ops), there is exactly one Pyramid here: a registered pytree, so it
@@ -18,10 +18,9 @@ __all__ = ["Pyramid", "PlanePyramid", "PLANE_BAND_ORDER"]
 
 #: Band order of :class:`PlanePyramid` planes: plane ``p`` holds the subband
 #: whose *degree index* (the reference's 15/45/75/105/135/165-degree order,
-#: ``numpy/transform2d.py:112-130``) is ``PLANE_BAND_ORDER[p]``.  This is the
-#: fused kernels' native "pair order" — the (p-q, p+q) quad pairs (0,5),
-#: (1,4), (2,3) sit adjacent — so forward kernels emit it and inverse kernels
-#: consume it with zero relayout passes.
+#: ``numpy/transform2d.py:112-130``) is ``PLANE_BAND_ORDER[p]``: "pair
+#: order", in which the (p-q, p+q) bands of each quad — (0,5), (1,4),
+#: (2,3) — sit adjacent, as the q2c pack produces and c2q consumes them.
 PLANE_BAND_ORDER = (0, 5, 1, 4, 2, 3)
 
 # position of degree band d in the plane order (inverse permutation)
@@ -74,18 +73,16 @@ class Pyramid:
 
 @jax.tree_util.register_pytree_node_class
 class PlanePyramid:
-    """A 2-D DTCWT pyramid in the TPU-native **band-plane layout**.
+    """A 2-D DTCWT pyramid in the **band-plane layout**.
 
     Instead of the reference's complex ``[..., H_l, W_l, 6]`` subband arrays
-    (interleaved at the finest granularity — hostile to the TPU's (8, 128)
-    vector layout), each level holds two real band-major f32 arrays
-    ``[..., 6, H_l, W_l]`` (``highpasses_re`` / ``highpasses_im``) in
-    :data:`PLANE_BAND_ORDER`.  Produced by ``Transform2d.forward(...,
-    layout='planes')`` and consumed by ``Transform2d.inverse``; under the
-    Pallas engine a jitted forward→process→inverse chain in this layout
-    skips both full-size relayout passes (the complex ``[..., 6]`` assembly
-    and the inverse's band re-split), the two largest non-kernel costs of
-    the transform.
+    (real and imaginary parts interleaved at the finest granularity), each
+    level holds two real band-major arrays ``[..., 6, H_l, W_l]``
+    (``highpasses_re`` / ``highpasses_im``) in :data:`PLANE_BAND_ORDER`.
+    Produced by ``Transform2d.forward(..., layout='planes')`` and consumed
+    by ``Transform2d.inverse``; a jitted forward→process→inverse chain in
+    this layout skips the complex ``[..., 6]`` assembly and the inverse's
+    band re-split.  It is also the only layout that stores bfloat16.
 
     The same container carries the 3-D transform's plane layout
     (``kind='3d'``): band-major ``[..., 28, P_l, Q_l, R_l]`` planes in the
@@ -188,16 +185,7 @@ class PlanePyramid:
 
 
 def pyramid_to_device(p) -> "Pyramid | PlanePyramid":
-    """Move a (possibly host-side, possibly complex) pyramid onto the device
-    via :func:`dtcwt_tpu.utils.asdevice` (complex host arrays transfer as
-    real/imag planes on backends without complex DMA support).  Accepts
-    either container; plane pyramids are all-real, so a plain tree_map
-    suffices."""
-    from dtcwt_tpu.utils import asdevice
-    if isinstance(p, PlanePyramid):
-        return jax.tree_util.tree_map(asdevice, p)
-    return Pyramid(asdevice(p.lowpass),
-                   tuple(None if h is None else asdevice(h)
-                         for h in p.highpasses),
-                   None if p.scales is None
-                   else tuple(asdevice(s) for s in p.scales))
+    """Move a (possibly host-side) pyramid of either container onto the
+    device; ``None`` entries (a discarded level) stay ``None``."""
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map(jnp.asarray, p)

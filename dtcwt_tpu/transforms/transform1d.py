@@ -1,6 +1,6 @@
 """1-D dual-tree complex wavelet transform (forward + inverse).
 
-Behavioral parity surface: ``/root/reference/dtcwt/numpy/transform1d.py``
+Behavioral parity surface: upstream ``dtcwt/numpy/transform1d.py``
 (forward :26-110, inverse :112-180, c2q1d :186-196).  Follows the reference
 layout convention: a 1-D vector, or a 2-D array whose *columns* are
 independent signals.  Higher-rank inputs are treated as ``[..., N, C]``
@@ -15,7 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from dtcwt_tpu.ops import engine, fb
+from dtcwt_tpu.ops import fb
 from dtcwt_tpu.ops.packing import (q2c1d, c2q1d, q2c1d_planes, c2q1d_planes)
 from dtcwt_tpu.transforms.pyramid import (Pyramid, PlanePyramid,
                                           pyramid_to_device)
@@ -28,13 +28,13 @@ __all__ = ["Transform1d"]
 
 
 # ---------------------------------------------------------------------------
-# Lane folding: a single long signal occupies one lane of the (8, 128) TPU
-# vector layout, wasting 127/128 of the VPU.  Fold it into S contiguous
-# segments laid out as lanes and run each level's filter with *neighbour-
-# segment halos* instead of per-segment symmetric extension — numerically
-# identical to the flat transform (the same trick, across devices instead of
-# lanes, as parallel/transform1d_dist.py).  Reference has no analogue; its
-# 1-D path is `dtcwt/numpy/transform1d.py:26-110` columns.
+# Lane folding: a single long signal is one column of an [N, C] array with
+# C = 1.  Fold it into S contiguous segments laid out side by side as
+# columns and run each level's filter with *neighbour-segment halos* instead
+# of per-segment symmetric extension — numerically identical to the flat
+# transform (the same trick, across devices instead of columns, as
+# parallel/transform1d_dist.py).  Reference has no analogue; its 1-D path is
+# `dtcwt/numpy/transform1d.py:26-110` columns.
 # ---------------------------------------------------------------------------
 
 _FOLD_MIN_N = 4096      # don't bother folding short signals
@@ -115,11 +115,10 @@ class Transform1d:
         self.qshift = normalize_qshift(qshift)
         if len(self.biort) != 4 or len(self.qshift) != 8:
             raise ValueError("1-D transform does not use bandpass variants")
-        self._fwd = jax.jit(self._forward_impl,
+        self._fwd = jax.jit(self._forward_body,
                             static_argnames=("nlevels", "include_scale",
-                                             "layout", "ek"))
-        self._inv = jax.jit(self._inverse_impl,
-                            static_argnames=("ret_flat", "ek"))
+                                             "layout"))
+        self._inv = jax.jit(self._inverse_body, static_argnames=("ret_flat",))
 
     # ------------------------------------------------------------------
     def forward(self, X, nlevels: int = 3, include_scale: bool = False,
@@ -139,18 +138,7 @@ class Transform1d:
         if layout not in ("interleaved", "planes"):
             raise ValueError("layout must be 'interleaved' or 'planes'")
         return self._fwd(X, nlevels=nlevels, include_scale=include_scale,
-                         layout=layout, ek=engine.trace_key())
-
-    def _forward_impl(self, X, *, nlevels: int, include_scale: bool,
-                      layout: str = "interleaved", ek=None) -> Pyramid:
-        impl = lambda x: self._forward_body(x, nlevels=nlevels,
-                                            include_scale=include_scale,
-                                            layout=layout)
-        if engine.use_pallas():
-            from dtcwt_tpu.ops.linearize import linear_vjp
-            spec = jax.ShapeDtypeStruct(X.shape, X.dtype)
-            return linear_vjp(impl, spec)(X)
-        return impl(X)
+                         layout=layout)
 
     def _forward_body(self, X, *, nlevels: int, include_scale: bool,
                       layout: str = "interleaved") -> Pyramid:
@@ -271,35 +259,7 @@ class Transform1d:
         lowpass = jnp.asarray(pyramid.lowpass)
         ret_flat = lowpass.ndim == 2 and lowpass.shape[-1] == 1
         gm = None if gain_mask is None else jnp.asarray(gain_mask)
-        return self._inv(pyramid, gm, ret_flat=ret_flat, ek=engine.trace_key())
-
-    def _inverse_impl(self, pyramid: Pyramid, gain_mask, *, ret_flat: bool,
-                      ek=None):
-        if gain_mask is not None:
-            # Apply the per-level gains up front (they scale each complex
-            # subband elementwise, reference numpy/transform1d.py:138-148);
-            # the remaining map is linear in the pyramid, which linear_vjp
-            # requires — it cannot close over the traced gain_mask operand.
-            if isinstance(pyramid, PlanePyramid):
-                pyramid = PlanePyramid(
-                    pyramid.lowpass,
-                    tuple((r * gain_mask[i]).astype(r.dtype)
-                          for i, r in enumerate(pyramid.highpasses_re)),
-                    tuple((m * gain_mask[i]).astype(m.dtype)
-                          for i, m in enumerate(pyramid.highpasses_im)),
-                    pyramid.scales, kind="1d")
-            else:
-                Yh = tuple(h * gain_mask[i]
-                           for i, h in enumerate(pyramid.highpasses))
-                pyramid = Pyramid(pyramid.lowpass, Yh, pyramid.scales)
-            gain_mask = None
-        impl = lambda p: self._inverse_body(p, gain_mask, ret_flat=ret_flat)
-        if engine.use_pallas():
-            from dtcwt_tpu.ops.linearize import linear_vjp
-            spec = jax.tree_util.tree_map(
-                lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), pyramid)
-            return linear_vjp(impl, spec)(pyramid)
-        return impl(pyramid)
+        return self._inv(pyramid, gm, ret_flat=ret_flat)
 
     def _inverse_body(self, pyramid: Pyramid, gain_mask, *, ret_flat: bool):
         _, g0o, _, g1o = self.biort

@@ -1,11 +1,11 @@
 """2-D dual-tree complex wavelet transform (forward + inverse).
 
-Behavioral parity surface: ``/root/reference/dtcwt/numpy/transform2d.py``
+Behavioral parity surface: upstream ``dtcwt/numpy/transform2d.py``
 (forward :40-188, inverse :190-295) including the bandpass (rotationally
 symmetric) wavelet variants, odd-size edge duplication (:84-94), per-level
 multiple-of-4 padding (:134-140) and the inverse-side crop rule (:262-268).
 
-TPU-first design notes:
+Design notes:
 
 * One functional code path, compiled with ``jax.jit``; works on a single
   ``[H, W]`` image or arbitrarily batched ``[..., H, W]`` stacks with no
@@ -27,7 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from dtcwt_tpu.coeffs import biort as _biort, qshift as _qshift
-from dtcwt_tpu.ops import engine, fb
+from dtcwt_tpu.ops import fb
 from dtcwt_tpu.ops.packing import q2c, c2q, q2c_planes, c2q_planes
 from dtcwt_tpu.transforms.pyramid import (
     Pyramid, PlanePyramid, PLANE_BAND_ORDER, _PLANE_POS, pyramid_to_device)
@@ -99,31 +99,10 @@ def _crop_to(Z, next_hw):
     return Z
 
 
-def _interleave_cols(pair):
-    """Rejoin even/odd column planes: out[..., 2j] = e[..., j] etc."""
-    e, o = pair
-    out_shape = e.shape[:-1] + (2 * e.shape[-1],)
-    return jnp.stack([e, o], axis=-1).reshape(out_shape)
-
-
-def _interleave_planes(planes):
-    """Rejoin (row-parity, col-parity) quarter planes ``(p00, p01, p10,
-    p11)`` into the full image (inverse-chaining fallback path)."""
-    p00, p01, p10, p11 = planes
-
-    def rows(pe, po):
-        out_shape = pe.shape[:-2] + (2 * pe.shape[-2], pe.shape[-1])
-        return jnp.stack([pe, po], axis=-2).reshape(out_shape)
-
-    return _interleave_cols((rows(p00, p10), rows(p01, p11)))
-
-
 def _pack_bands(lohi, hilo, hihi):
     """Quad->complex pack of the three highpass images into the 6 oriented
     subbands (order 15/45/75/105/135/165 deg, reference
-    ``numpy/transform2d.py:112-130``).  XLA layout ops: the fused level
-    kernels do this packing in-kernel, and a standalone Pallas pack kernel
-    measured slower than XLA's fused layout ops (removed in r2)."""
+    ``numpy/transform2d.py:112-130``)."""
     b05 = q2c(lohi)
     b23 = q2c(hilo)
     b14 = q2c(hihi)
@@ -131,21 +110,10 @@ def _pack_bands(lohi, hilo, hihi):
                      axis=-1)
 
 
-def _pack_band_planes_from_complex(yh):
-    """Band-minor complex ``[..., h, w, 6]`` -> band-major ``(re, im)``
-    planes in PLANE_BAND_ORDER (static slices; no gather)."""
-    re = jnp.stack([jnp.real(yh[..., d]) for d in PLANE_BAND_ORDER],
-                   axis=-3)
-    im = jnp.stack([jnp.imag(yh[..., d]) for d in PLANE_BAND_ORDER],
-                   axis=-3)
-    return re, im
-
-
 def _pack_band_planes(lohi, hilo, hihi, dtype):
     """Quad->plane pack of the three highpass images straight into the
     band-major ``(re, im)`` plane pair (``PLANE_BAND_ORDER``), with no
-    complex intermediate — the XLA-path twin of the fused kernels' native
-    plane output, and the only representable route for bfloat16."""
+    complex intermediate — the only representable route for bfloat16."""
     b05 = q2c_planes(lohi)
     b23 = q2c_planes(hilo)
     b14 = q2c_planes(hihi)
@@ -162,10 +130,10 @@ class Transform2d:
     def __init__(self, biort=DEFAULT_BIORT, qshift=DEFAULT_QSHIFT):
         self.biort = normalize_biort(biort)
         self.qshift = normalize_qshift(qshift)
-        self._fwd = jax.jit(self._forward_impl,
+        self._fwd = jax.jit(self._forward_body,
                             static_argnames=("nlevels", "include_scale",
-                                             "layout", "ek"))
-        self._inv = jax.jit(self._inverse_impl, static_argnames=("ek",))
+                                             "layout"))
+        self._inv = jax.jit(self._inverse_body)
 
     # ------------------------------------------------------------------
     # forward
@@ -180,10 +148,9 @@ class Transform2d:
         ``numpy/transform2d.py:84-94``).
 
         ``layout='planes'`` returns a :class:`PlanePyramid` instead — the
-        TPU-native band-major f32 plane layout the fused kernels emit
-        natively (see :data:`dtcwt_tpu.PLANE_BAND_ORDER`).  ``inverse``
-        accepts either container; plane-layout chains skip the two
-        full-size subband relayout passes under the Pallas engine.
+        band-major real plane layout (see :data:`dtcwt_tpu.PLANE_BAND_ORDER`),
+        the only layout that stores bfloat16.  ``inverse`` accepts either
+        container.
         """
         X = jnp.asarray(X)
         if X.ndim < 2:
@@ -202,175 +169,7 @@ class Transform2d:
                 "to decomposition.", ext[0], ext[1],
                 X.shape[-2], X.shape[-1])
         return self._fwd(X, nlevels=nlevels, include_scale=include_scale,
-                         layout=layout, ek=engine.trace_key())
-
-    def _forward_impl(self, X, *, nlevels: int, include_scale: bool,
-                      layout: str = "interleaved", ek=None) -> Pyramid:
-        impl = lambda x: self._forward_body(x, nlevels=nlevels,
-                                            include_scale=include_scale,
-                                            layout=layout)
-        if engine.use_pallas():
-            # Pallas kernels have no autodiff rule; the transform is
-            # linear, so grads go through its linear transpose — the
-            # kernel-speed explicit adjoint where available (ops/adjoint),
-            # the XLA path's mechanical transpose otherwise.
-            from dtcwt_tpu.ops.linearize import linear_vjp
-            spec = jax.ShapeDtypeStruct(X.shape, X.dtype)
-            adj = self._fwd_adjoint_fn(X.shape, X.dtype, nlevels,
-                                       include_scale, layout)
-            return linear_vjp(impl, spec, adjoint=adj)(X)
-        return impl(X)
-
-    # ------------------------------------------------------------------
-    # kernel-speed adjoints (see ops/adjoint.py): the qshift stage is
-    # exactly orthogonal (||A^T A - I|| ~ 1e-15 at matrix level incl.
-    # boundaries), so the level>=2 analysis adjoint IS the fused inverse
-    # stage and the synthesis adjoint the fused forward stage; level 1
-    # (biort, redundant) gets its explicit zero-extension + border-fold
-    # adjoint.  JAX's complex-cotangent convention arrives conjugated.
-    # ------------------------------------------------------------------
-    def _fwd_adjoint_fn(self, shape, dtype, nlevels: int,
-                        include_scale: bool, layout: str):
-        """Cotangent map of the forward at kernel speed, or None when the
-        configuration falls outside its envelope (bp variants, scales,
-        plane layout, pad/crop shape chains, non-f32)."""
-        if (len(self.biort) != 4 or len(self.qshift) != 8
-                or include_scale or nlevels < 1):
-            return None
-        planes = layout == "planes"
-        if jnp.dtype(dtype) != jnp.float32:
-            return None
-        H, W = shape[-2], shape[-1]
-        if H % (2 ** nlevels) or W % (2 ** nlevels):
-            return None
-        b, q = self.biort, self.qshift
-        h0o, h1o = b[0], b[2]
-        g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
-
-        def adj(cot):
-            from dtcwt_tpu.ops import pallas_ilevel2
-            from dtcwt_tpu.ops import adjoint as adjops
-            if planes:
-                # plane outputs are REAL arrays: no complex-cotangent
-                # conjugation convention applies (unlike lax.complex)
-                bands = tuple((_comp(r), _comp(i)) for r, i in
-                              zip(cot.highpasses_re, cot.highpasses_im))
-                quads_of = lambda lvl: (
-                    lambda bp: (c2q_planes(bp(0), bp(5)),
-                                c2q_planes(bp(2), bp(3)),
-                                c2q_planes(bp(1), bp(4))))(
-                    lambda d: (bands[lvl][0][..., _PLANE_POS[d], :, :],
-                               bands[lvl][1][..., _PLANE_POS[d], :, :]))
-            else:
-                bands = tuple(jnp.conj(h) for h in cot.highpasses)
-                quads_of = lambda lvl: (
-                    c2q(bands[lvl][..., 0], bands[lvl][..., 5], 1.0, 1.0),
-                    c2q(bands[lvl][..., 2], bands[lvl][..., 3], 1.0, 1.0),
-                    c2q(bands[lvl][..., 1], bands[lvl][..., 4], 1.0, 1.0))
-            Z = _comp(jnp.asarray(cot.lowpass))
-            zplanes = None
-            for level in range(nlevels - 1, 0, -1):
-                zp = pallas_ilevel2.inv_level2(
-                    Z, None if planes else bands[level],
-                    g0a, g0b, g1a, g1b, planes=zplanes, as_planes=True,
-                    bands=bands[level] if planes else None)
-                if zp is not None:
-                    zplanes, Z = zp, None
-                    continue
-                if zplanes is not None:
-                    Z = _interleave_planes(zplanes)
-                    zplanes = None
-                lh, hl, hh = quads_of(level)
-                p0, p1 = (g0b, g0a), (g1b, g1a)
-                y1 = fb.ifilt2_sum_axis(Z, lh, p0, p1, -2)
-                y2 = fb.ifilt2_sum_axis(hl, hh, p0, p1, -2)
-                Z = fb.ifilt2_sum_axis(y1, y2, p0, p1, -1)
-            if zplanes is not None:
-                Z = _interleave_planes(zplanes)
-            lh, hl, hh = quads_of(0)
-            return adjops.level1_fwd_adj_quads(Z, lh, hl, hh, h0o, h1o)
-        return adj
-
-    def _inv_adjoint_fn(self, pyramid):
-        """Cotangent map of the (gain-free) inverse at kernel speed, or
-        None outside its envelope."""
-        planes = isinstance(pyramid, PlanePyramid)
-        if not planes and not isinstance(pyramid, Pyramid):
-            return None
-        if len(self.biort) != 4 or len(self.qshift) != 8:
-            return None
-        if pyramid.scales is not None:
-            return None
-        if planes:
-            if pyramid.kind != "2d":
-                return None
-            hw = [tuple(r.shape[-2:]) for r in pyramid.highpasses_re]
-            if any(jnp.result_type(r) != jnp.float32
-                   for r in pyramid.highpasses_re):
-                return None
-        else:
-            hw = [tuple(h.shape[-3:-1]) for h in pyramid.highpasses]
-        nlevels = len(hw)
-        if nlevels < 1:
-            return None
-        if jnp.result_type(pyramid.lowpass) != jnp.float32:
-            return None
-        for lvl in range(1, nlevels):
-            if hw[lvl - 1] != tuple(2 * s for s in hw[lvl]):
-                return None
-        if tuple(pyramid.lowpass.shape[-2:]) != tuple(
-                2 * s for s in hw[-1]):
-            return None
-        b, q = self.biort, self.qshift
-        g0o, g1o = b[1], b[3]
-        h0a, h0b, h1a, h1b = q[0], q[1], q[4], q[5]
-
-        def adj(xbar):
-            from dtcwt_tpu.ops import pallas_level2
-            from dtcwt_tpu.ops import adjoint as adjops
-            z, b1 = adjops.level1_inv_adj(jnp.asarray(xbar), g0o, g1o)
-            if planes:
-                re1, im1 = _pack_band_planes_from_complex(b1)
-                res, ims = [re1], [im1]
-            else:
-                Yh_cot = [jnp.conj(b1)]
-            pair = None
-            for level in range(1, nlevels):
-                keep_split = level < nlevels - 1
-                fused = pallas_level2.fwd_level2(
-                    z, h0a, h0b, h1a, h1b, pair=pair,
-                    as_split=keep_split, as_planes=planes)
-                if fused is not None:
-                    lp, yh = fused
-                    if planes:
-                        res.append(yh[0])
-                        ims.append(yh[1])
-                    else:
-                        Yh_cot.append(jnp.conj(yh))
-                    if isinstance(lp, tuple):
-                        pair, z = lp, None
-                    else:
-                        z, pair = lp, None
-                    continue
-                if pair is not None:
-                    z, pair = _interleave_cols(pair), None
-                zc = _comp(z)
-                lo, hi = fb.dfilt2_axis(zc, (h0b, h0a), (h1b, h1a), -2)
-                z, im23 = fb.dfilt2_axis(lo, (h0b, h0a), (h1b, h1a), -1)
-                im05, im14 = fb.dfilt2_axis(hi, (h0b, h0a), (h1b, h1a), -1)
-                if planes:
-                    re_l, im_l = _pack_band_planes(im05, im23, im14,
-                                                   jnp.float32)
-                    res.append(re_l)
-                    ims.append(im_l)
-                else:
-                    Yh_cot.append(jnp.conj(_pack_bands(im05, im23, im14)))
-            if pair is not None:
-                z = _interleave_cols(pair)
-            if planes:
-                return PlanePyramid(z, tuple(res), tuple(ims), None)
-            return Pyramid(z, tuple(Yh_cot), None)
-        return adj
+                         layout=layout)
 
     def _forward_body(self, X, *, nlevels: int, include_scale: bool,
                       layout: str = "interleaved") -> Pyramid:
@@ -404,75 +203,27 @@ class Transform2d:
         Yscale = []
 
         # Level 1: odd (biort) filters, no decimation before the quad pack.
-        # The Pallas engine fuses the whole level (three column filters, four
-        # row filters and the quad pack) into one kernel when in envelope.
-        # Between consecutive fused levels the lowpass stays as its even/odd
-        # column planes, skipping an interleave + re-split HBM round trip
-        # (unless include_scale needs the materialised lowpass per level).
-        pair = None
-        fused = None
-        if engine.use_pallas():
-            from dtcwt_tpu.ops import pallas_level1
-            fused = pallas_level1.fwd_level1(
-                X, h0o, h1o, as_split=not include_scale and nlevels > 1,
-                h2o=h2o, as_planes=planes)
-        if fused is not None:
-            lp, yh1 = fused
-            Yh.append(yh1)
-            if isinstance(lp, tuple):
-                pair, lolo = lp, None
-            else:
-                lolo = lp
+        Xc = _comp(X)
+        lo, hi = fb.filter2_axis(Xc, h0o, h1o, -2)
+        lolo, im23 = fb.filter2_axis(lo, h0o, h1o, -1)
+        if h2o is not None:
+            im05 = fb.filter_axis(hi, h0o, -1)
+            ba = fb.filter_axis(Xc, h2o, -2)
+            im14 = fb.filter_axis(ba, h2o, -1)
         else:
-            Xc = _comp(X)
-            lo, hi = fb.filter2_axis(Xc, h0o, h1o, -2)
-            lolo, im23 = fb.filter2_axis(lo, h0o, h1o, -1)
-            if h2o is not None:
-                im05 = fb.filter_axis(hi, h0o, -1)
-                ba = fb.filter_axis(Xc, h2o, -2)
-                im14 = fb.filter_axis(ba, h2o, -1)
-            else:
-                im05, im14 = fb.filter2_axis(hi, h0o, h1o, -1)
-            lolo = lolo.astype(sdt)
-            Yh.append(_pack_band_planes(im05, im23, im14, sdt) if planes
-                      else _pack_bands(im05, im23, im14))
+            im05, im14 = fb.filter2_axis(hi, h0o, h1o, -1)
+        lolo = lolo.astype(sdt)
+        Yh.append(_pack_band_planes(im05, im23, im14, sdt) if planes
+                  else _pack_bands(im05, im23, im14))
         if include_scale:
             Yscale.append(lolo)
 
         # Levels >= 2: quarter-shift (even) filters, decimating by 2.
         for _level in range(1, nlevels):
-            if pair is not None:
-                if pair[0].shape[-2] % 4 != 0:
-                    pair = (_pad_multiple4(pair[0], -2),
-                            _pad_multiple4(pair[1], -2))
-                if (2 * pair[0].shape[-1]) % 4 != 0:
-                    # Column padding shifts the column parity; rejoin first.
-                    lolo, pair = _interleave_cols(pair), None
-            if pair is None:
-                if lolo.shape[-2] % 4 != 0:
-                    lolo = _pad_multiple4(lolo, -2)
-                if lolo.shape[-1] % 4 != 0:
-                    lolo = _pad_multiple4(lolo, -1)
-            if engine.use_pallas():
-                from dtcwt_tpu.ops import pallas_level2
-                keep_split = (not include_scale) and _level < nlevels - 1
-                fused = pallas_level2.fwd_level2(lolo, h0a, h0b, h1a, h1b,
-                                                 pair=pair,
-                                                 as_split=keep_split,
-                                                 h2a=h2a, h2b=h2b,
-                                                 as_planes=planes)
-                if fused is not None:
-                    lp, yh = fused
-                    Yh.append(yh)
-                    if isinstance(lp, tuple):
-                        pair, lolo = lp, None
-                    else:
-                        lolo, pair = lp, None
-                    if include_scale:
-                        Yscale.append(lolo)
-                    continue
-            if pair is not None:
-                lolo, pair = _interleave_cols(pair), None
+            if lolo.shape[-2] % 4 != 0:
+                lolo = _pad_multiple4(lolo, -2)
+            if lolo.shape[-1] % 4 != 0:
+                lolo = _pad_multiple4(lolo, -1)
             lc = _comp(lolo)
             lo, hi = fb.dfilt2_axis(lc, (h0b, h0a), (h1b, h1a), -2)
             if h2b is not None:
@@ -489,8 +240,6 @@ class Transform2d:
             if include_scale:
                 Yscale.append(lolo)
 
-        if pair is not None:
-            lolo = _interleave_cols(pair)
         scales = tuple(Yscale) if include_scale else None
         if planes:
             return PlanePyramid(lolo, tuple(r for r, _ in Yh),
@@ -573,38 +322,7 @@ class Transform2d:
         gains in degree order (reference: ``transform2d.py:190-295``)."""
         gm = None if gain_mask is None else jnp.asarray(gain_mask)
         pyramid = pyramid_to_device(pyramid)
-        return self._inv(pyramid, gm, ek=engine.trace_key())
-
-    def _inverse_impl(self, pyramid: Pyramid, gain_mask, *, ek=None):
-        if gain_mask is not None:
-            # The gains scale each complex subband elementwise before any
-            # filtering, so applying them up front is exactly the reference
-            # semantics (numpy/transform2d.py:243-245) while (a) keeping the
-            # remaining map linear in the pyramid — ``linear_vjp`` cannot
-            # close over the traced gain_mask operand — and (b) letting the
-            # fused Pallas inverse kernels run on the gain-free problem.
-            if isinstance(pyramid, PlanePyramid):
-                # plane position p holds degree band PLANE_BAND_ORDER[p]
-                gp = jnp.stack([gain_mask[d] for d in PLANE_BAND_ORDER])
-                pyramid = PlanePyramid(
-                    pyramid.lowpass,
-                    tuple((r * gp[:, i, None, None]).astype(r.dtype)
-                          for i, r in enumerate(pyramid.highpasses_re)),
-                    tuple((m * gp[:, i, None, None]).astype(m.dtype)
-                          for i, m in enumerate(pyramid.highpasses_im)),
-                    pyramid.scales)
-            else:
-                Yh = tuple(h * gain_mask[:, i]
-                           for i, h in enumerate(pyramid.highpasses))
-                pyramid = Pyramid(pyramid.lowpass, Yh, pyramid.scales)
-        impl = lambda p: self._inverse_body(p, None)
-        if engine.use_pallas():
-            from dtcwt_tpu.ops.linearize import linear_vjp
-            spec = jax.tree_util.tree_map(
-                lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), pyramid)
-            return linear_vjp(impl, spec,
-                              adjoint=self._inv_adjoint_fn(pyramid))(pyramid)
-        return impl(pyramid)
+        return self._inv(pyramid, gm)
 
     def _inverse_body(self, pyramid: Pyramid, gain_mask):
         b = self.biort
@@ -642,35 +360,7 @@ class Transform2d:
                     c2q(yh[..., 2], yh[..., 3], *g_hl),
                     c2q(yh[..., 1], yh[..., 4], *g_hh))
 
-        # Consecutive fused inverse levels chain in (row, col)-parity plane
-        # space: the 4x4 output-stream -> image transpose plus the next
-        # level's parity re-split is pure relayout and costs more than the
-        # kernels themselves (see pallas_ilevel2.inv_level2).  Chaining is
-        # only valid when no boundary crop is needed.
-        zplanes = None
         for level in range(nlevels - 1, 0, -1):
-            if gain_mask is None and engine.use_pallas():
-                from dtcwt_tpu.ops import pallas_ilevel2
-                src = Z if zplanes is None else zplanes[0]
-                nocrop = (2 * src.shape[-2] * (2 if zplanes else 1)
-                          == 2 * hw(level - 1)[0]
-                          and 2 * src.shape[-1] * (2 if zplanes else 1)
-                          == 2 * hw(level - 1)[1])
-                zp = pallas_ilevel2.inv_level2(
-                    Z, None if plane_pyr else Yh[level],
-                    g0a, g0b, g1a, g1b,
-                    planes=zplanes, as_planes=nocrop, g2a=g2a, g2b=g2b,
-                    bands=Yb[level] if plane_pyr else None)
-                if zp is not None:
-                    if nocrop:
-                        zplanes, Z = zp, None
-                    else:
-                        Z = _crop_to(zp, hw(level - 1))
-                        zplanes = None
-                    continue
-            if zplanes is not None:
-                Z = _interleave_planes(zplanes)
-                zplanes = None
             g_lh = _gains(gain_mask, 0, 5, level)
             g_hl = _gains(gain_mask, 2, 3, level)
             g_hh = _gains(gain_mask, 1, 4, level)
@@ -690,17 +380,6 @@ class Transform2d:
             Z = _crop_to(Z, hw(level - 1)).astype(sdt)
 
         if nlevels >= 1:
-            if gain_mask is None and engine.use_pallas():
-                from dtcwt_tpu.ops import pallas_ilevel1
-                zp = pallas_ilevel1.inv_level1(
-                    Z, None if plane_pyr else Yh[0], g0o, g1o,
-                    planes=zplanes, g2o=g2o,
-                    bands=Yb[0] if plane_pyr else None)
-                if zp is not None:
-                    return zp
-            if zplanes is not None:
-                Z = _interleave_planes(zplanes)
-                zplanes = None
             g_lh = _gains(gain_mask, 0, 5, 0)
             g_hl = _gains(gain_mask, 2, 3, 0)
             g_hh = _gains(gain_mask, 1, 4, 0)

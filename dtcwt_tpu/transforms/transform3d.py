@@ -1,13 +1,13 @@
 """3-D dual-tree complex wavelet transform (forward + inverse).
 
-Behavioral parity surface: ``/root/reference/dtcwt/numpy/transform3d.py``
+Behavioral parity surface: upstream ``dtcwt/numpy/transform3d.py``
 (forward :37-131, inverse :133-206, _level1_xfm :208-289, _level2_xfm
 :317-383, _level1_ifm :385-440, _level2_ifm :460-526, no-highpass variants
 :291-315/:442-458), including ``ext_mode`` 4/8 divisibility + edge-repeat
 padding, ``discard_level_1`` (28 directional subbands -> 1:1 redundancy) and
 the inverse-side crop rules.
 
-TPU-first redesign: the reference loops over 2-D planes in Python, calling
+Redesign: the reference loops over 2-D planes in Python, calling
 column filters per slice (its hottest code path).  Here each level is three
 whole-volume separable axis passes over ``[..., D, H, W]`` (the filter
 primitives are axis-parameterised and batched), so one jit-compiled program
@@ -24,7 +24,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from dtcwt_tpu.ops import engine, fb
+from dtcwt_tpu.ops import fb
 from dtcwt_tpu.ops.packing import (cube2c, c2cube, cube2c_planes,
                                    c2cube_planes)
 from dtcwt_tpu.transforms.pyramid import (Pyramid, PlanePyramid,
@@ -75,11 +75,10 @@ class Transform3d:
         if ext_mode not in (4, 8):
             raise ValueError("ext_mode must be one of 4 or 8")
         self.ext_mode = ext_mode
-        self._fwd = jax.jit(self._forward_impl,
+        self._fwd = jax.jit(self._forward_body,
                             static_argnames=("nlevels", "include_scale",
-                                             "discard_level_1", "layout",
-                                             "ek"))
-        self._inv = jax.jit(self._inverse_impl, static_argnames=("ek",))
+                                             "discard_level_1", "layout"))
+        self._inv = jax.jit(self._inverse_body)
 
     # ------------------------------------------------------------------
     # forward
@@ -108,158 +107,7 @@ class Transform3d:
                     "Input shape should be a multiple of %d in each direction"
                     " when ext_mode == %d" % (div, self.ext_mode))
         return self._fwd(X, nlevels=nlevels, include_scale=include_scale,
-                         discard_level_1=discard_level_1, layout=layout,
-                         ek=engine.trace_key())
-
-    def _forward_impl(self, X, *, nlevels, include_scale, discard_level_1,
-                      layout="interleaved", ek=None):
-        impl = lambda x: self._forward_body(
-            x, nlevels=nlevels, include_scale=include_scale,
-            discard_level_1=discard_level_1, layout=layout)
-        if engine.use_pallas():
-            from dtcwt_tpu.ops.linearize import linear_vjp
-            spec = jax.ShapeDtypeStruct(X.shape, X.dtype)
-            adj = self._fwd_adjoint_fn(X.shape, X.dtype, nlevels,
-                                       include_scale, discard_level_1,
-                                       layout)
-            return linear_vjp(impl, spec, adjoint=adj)(X)
-        return impl(X)
-
-    # ------------------------------------------------------------------
-    # kernel-speed adjoints (ops/adjoint.py; same structure as the 2-D
-    # ones): the orthogonal qshift stage's analysis adjoint is the fused
-    # inverse stage (and vice versa), cube2c is orthogonal (its adjoint
-    # is c2cube), and the redundant level-1 biort stage gets the explicit
-    # zero-extension + border-fold adjoint along each axis.
-    # ------------------------------------------------------------------
-    def _adjoint_shapes_ok(self, spatial, nlevels: int) -> bool:
-        """Crop/pad-free level chain: every level divides exactly."""
-        pw = nlevels + (1 if self.ext_mode == 8 else 0)
-        return not any(s % (2 ** max(pw, 1)) for s in spatial)
-
-    def _fwd_adjoint_fn(self, shape, dtype, nlevels, include_scale,
-                        discard_level_1, layout):
-        if (len(self.biort) != 4 or len(self.qshift) != 8
-                or include_scale or discard_level_1 or nlevels < 1):
-            return None
-        if jnp.dtype(dtype) != jnp.float32:
-            return None
-        if self.biort[0].size % 2 == 0:   # even filters trim shapes
-            return None
-        if not self._adjoint_shapes_ok(shape[-3:], nlevels):
-            return None
-        planes = layout == "planes"
-        h0o, h1o = self.biort[0], self.biort[2]
-        q = self.qshift
-        g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
-
-        def adj(cot):
-            from dtcwt_tpu.ops import adjoint as adjops
-            if planes:
-                # real plane cotangents: no complex conjugation convention
-                bands = tuple((_comp(r), _comp(i)) for r, i in
-                              zip(cot.highpasses_re, cot.highpasses_im))
-                oct_of = lambda lvl: self._octants_planes(*bands[lvl])
-            else:
-                bands = tuple(jnp.conj(h) for h in cot.highpasses)
-                oct_of = lambda lvl: self._octants(bands[lvl])
-            Yl = _comp(jnp.asarray(cot.lowpass))
-            for level in range(nlevels - 1, 0, -1):
-                curr = tuple(s // 2 for s in Yl.shape[-3:])
-                prev = tuple(Yl.shape[-3:])   # crop-free: prev == 2*curr
-                lvl_b = bands[level]
-                fused = self._level2_inv_fused(Yl, lvl_b, curr, prev)
-                if fused is not None:
-                    Yl = fused
-                else:
-                    Yl = self._level2_inv(Yl, oct_of(level), curr,
-                                          g0a, g0b, g1a, g1b, prev)
-            oc = oct_of(0)
-            oc[(0, 0, 0)] = Yl
-            V = {}
-            for j in range(2):
-                for k in range(2):
-                    V[(j, k)] = adjops.filter2_sum_adj_axis(
-                        oc[(0, j, k)], oc[(1, j, k)], h0o, h1o, -3)
-            u0 = adjops.filter2_sum_adj_axis(V[(0, 0)], V[(1, 0)],
-                                             h0o, h1o, -2)
-            u1 = adjops.filter2_sum_adj_axis(V[(0, 1)], V[(1, 1)],
-                                             h0o, h1o, -2)
-            return adjops.filter2_sum_adj_axis(u0, u1, h0o, h1o, -1)
-        return adj
-
-    def _inv_adjoint_fn(self, pyramid):
-        planes = isinstance(pyramid, PlanePyramid)
-        if not planes and not isinstance(pyramid, Pyramid):
-            return None
-        if len(self.biort) != 4 or len(self.qshift) != 8:
-            return None
-        if pyramid.scales is not None:
-            return None
-        if self.biort[0].size % 2 == 0:
-            return None
-        if planes:
-            if pyramid.kind != "3d":
-                return None
-            if any(r is None for r in pyramid.highpasses_re):
-                return None
-            shapes = [tuple(r.shape[-3:]) for r in pyramid.highpasses_re]
-            if any(jnp.result_type(r) != jnp.float32
-                   for r in pyramid.highpasses_re):
-                return None
-        else:
-            if any(h is None for h in pyramid.highpasses):
-                return None
-            shapes = [tuple(h.shape[-4:-1]) for h in pyramid.highpasses]
-        nlevels = len(shapes)
-        if nlevels < 1:
-            return None
-        if jnp.result_type(pyramid.lowpass) != jnp.float32:
-            return None
-        for lvl in range(1, nlevels):
-            if shapes[lvl - 1] != tuple(2 * s for s in shapes[lvl]):
-                return None
-        if tuple(pyramid.lowpass.shape[-3:]) != tuple(
-                2 * s for s in shapes[-1]):
-            return None
-        if not self._adjoint_shapes_ok(
-                tuple(2 * s for s in shapes[0]), nlevels):
-            return None
-        g0o, g1o = self.biort[1], self.biort[3]
-        q = self.qshift
-        h0a, h0b, h1a, h1b = q[0], q[1], q[4], q[5]
-
-        def adj(xbar):
-            from dtcwt_tpu.ops import adjoint as adjops
-            u0b, u1b = adjops.filter2_adj_axis(jnp.asarray(xbar),
-                                               g0o, g1o, -1)
-            V00b, V10b = adjops.filter2_adj_axis(u0b, g0o, g1o, -2)
-            V01b, V11b = adjops.filter2_adj_axis(u1b, g0o, g1o, -2)
-            octb = {}
-            for (j, k), vb in (((0, 0), V00b), ((1, 0), V10b),
-                               ((0, 1), V01b), ((1, 1), V11b)):
-                octb[(0, j, k)], octb[(1, j, k)] = adjops.filter2_adj_axis(
-                    vb, g0o, g1o, -3)
-            glll = octb[(0, 0, 0)]
-            hp1 = self._pack_octants([octb[o] for o in _OCTANTS], planes,
-                                     dtype=jnp.float32)
-            if planes:
-                res, ims = [hp1[0]], [hp1[1]]
-            else:
-                Yh_cot = [jnp.conj(hp1)]
-            for level in range(1, nlevels):
-                glll, hp = self._level2_fwd(glll, h0a, h0b, h1a, h1b,
-                                            planes=planes)
-                if planes:
-                    res.append(hp[0])
-                    ims.append(hp[1])
-                else:
-                    Yh_cot.append(jnp.conj(hp))
-            if planes:
-                return PlanePyramid(glll, tuple(res), tuple(ims), None,
-                                    kind="3d")
-            return Pyramid(glll, tuple(Yh_cot), None)
-        return adj
+                         discard_level_1=discard_level_1, layout=layout)
 
     def _forward_body(self, X, *, nlevels, include_scale, discard_level_1,
                       layout="interleaved"):
@@ -318,25 +166,10 @@ class Transform3d:
         # (The reference's double-size work array and its even-filter edge
         # pads are not needed: the padded samples are never consumed.)
         # Each stage emits BOTH branches from one read of its input
-        # (fb.filter2_axis), halving the tree's HBM read traffic; in the
-        # two-sided kernel envelope the whole (W, H) stage pair runs as one
-        # pass per depth slice (ops/pallas_hw.py: 1 read -> 4 writes).
+        # (fb.filter2_axis).
         sdt = X.dtype
-        t21 = None
-        if engine.use_pallas():
-            from dtcwt_tpu.ops import pallas_hw, pallas_pack3d
-            # fully fused level 1: (H, W) MXU stage pair + depth filter +
-            # in-kernel cube2c packing (f32; bf16/even filters decline)
-            out = pallas_pack3d.fwd_level1_pack(X, h0o, h1o,
-                                                as_planes=planes)
-            if out is not None:
-                return out
-            hw = pallas_hw.filter_hw22(X, h0o, h1o)  # bf16 in/out, f32 MXU
-            if hw is not None:
-                t21 = [[_comp(hw[0][k]), _comp(hw[1][k])] for k in range(2)]
-        if t21 is None:
-            t2 = fb.filter2_axis(_comp(X), h0o, h1o, -1)
-            t21 = [fb.filter2_axis(v, h0o, h1o, -2) for v in t2]
+        t2 = fb.filter2_axis(_comp(X), h0o, h1o, -1)
+        t21 = [fb.filter2_axis(v, h0o, h1o, -2) for v in t2]
         oct_ = {}
         for j in range(2):          # dim -2 half
             for k in range(2):      # dim -1 half
@@ -379,24 +212,8 @@ class Transform3d:
             if X.shape[ax] % div != 0:
                 X = _repeat_edges(X, ax, rep)
         sdt = X.dtype
-        t21 = None
-        if engine.use_pallas():
-            from dtcwt_tpu.ops import pallas_hw, pallas_pack3d
-            # fully fused level >= 2: depth dfilt stage + one per-pair
-            # (H, W) MXU pack kernel (f32; bf16/off-envelope declines)
-            out = pallas_pack3d.fwd_level2_pack(
-                _comp(X), (h0b, h0a), (h1b, h1a), as_planes=planes)
-            if out is not None:
-                lll, hp = out
-                if planes and sdt != lll.dtype:
-                    hp = (hp[0].astype(sdt), hp[1].astype(sdt))
-                return lll.astype(sdt), hp
-            hw = pallas_hw.dfilt_hw22(X, (h0b, h0a), (h1b, h1a))
-            if hw is not None:
-                t21 = [[_comp(hw[0][k]), _comp(hw[1][k])] for k in range(2)]
-        if t21 is None:
-            t2 = fb.dfilt2_axis(_comp(X), (h0b, h0a), (h1b, h1a), -1)
-            t21 = [fb.dfilt2_axis(v, (h0b, h0a), (h1b, h1a), -2) for v in t2]
+        t2 = fb.dfilt2_axis(_comp(X), (h0b, h0a), (h1b, h1a), -1)
+        t21 = [fb.dfilt2_axis(v, (h0b, h0a), (h1b, h1a), -2) for v in t2]
         oct_ = {}
         for j in range(2):
             for k in range(2):
@@ -416,17 +233,7 @@ class Transform3d:
         :class:`PlanePyramid`.  A ``None`` first highpass entry (from
         ``discard_level_1``) is treated as zero."""
         pyramid = pyramid_to_device(pyramid)
-        return self._inv(pyramid, ek=engine.trace_key())
-
-    def _inverse_impl(self, pyramid: Pyramid, *, ek=None):
-        impl = lambda p: self._inverse_body(p)
-        if engine.use_pallas():
-            from dtcwt_tpu.ops.linearize import linear_vjp
-            spec = jax.tree_util.tree_map(
-                lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), pyramid)
-            return linear_vjp(impl, spec,
-                              adjoint=self._inv_adjoint_fn(pyramid))(pyramid)
-        return impl(pyramid)
+        return self._inv(pyramid)
 
     def _inverse_body(self, pyramid: Pyramid):
         b = self.biort
@@ -453,69 +260,14 @@ class Transform3d:
                 prev_shape = spatial(level - 1)
             else:
                 prev_shape = tuple(2 * s for s in spatial(level))
-            fused = None
-            if engine.use_pallas():
-                lvl = (Yb[level] if isinstance(pyramid, PlanePyramid)
-                       else Yh[level])
-                fused = self._level2_inv_fused(Yl, lvl, spatial(level),
-                                               prev_shape)
-            if fused is not None:
-                Yl = fused.astype(Yl.dtype)
-                continue
             Yl = self._level2_inv(Yl, oct_at(level), spatial(level),
                                   g0a, g0b, g1a, g1b, prev_shape)
         if nlevels >= 1:
             if not has(0):
                 Yl = self._level1_inv_lowpass_only(Yl, g0o)
             else:
-                fused = None
-                if engine.use_pallas():
-                    level0 = (Yb[0] if isinstance(pyramid, PlanePyramid)
-                              else Yh[0])
-                    fused = self._level1_inv_fused(Yl, level0, g0o, g1o)
-                Yl = (fused if fused is not None
-                      else self._level1_inv(Yl, oct_at(0), g0o, g1o))
+                Yl = self._level1_inv(Yl, oct_at(0), g0o, g1o)
         return Yl
-
-    def _level2_inv_fused(self, Yl, level_bands, curr, prev_shape):
-        """Fused level->=2 inverse (per-pair unpack kernel + dual-sum depth
-        merge, ops/pallas_pack3d.py) with the reference crop rule applied;
-        None off-envelope."""
-        from dtcwt_tpu.ops import pallas_pack3d
-        q = self.qshift
-        g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
-        if isinstance(level_bands, tuple):
-            re, im = _comp(level_bands[0]), _comp(level_bands[1])
-        else:
-            re = jnp.stack([jnp.real(level_bands[..., n])
-                            for n in range(28)], axis=-4)
-            im = jnp.stack([jnp.imag(level_bands[..., n])
-                            for n in range(28)], axis=-4)
-        out = pallas_pack3d.inv_level2_pack(_comp(Yl), re, im,
-                                            (g0b, g0a), (g1b, g1a))
-        if out is None:
-            return None
-        crop = 1 if self.ext_mode == 4 else 2
-        for d, ax in enumerate((-3, -2, -1)):
-            if 2 * curr[d] != prev_shape[d]:
-                out = _crop(out, ax, crop)
-        return out
-
-    @staticmethod
-    def _level1_inv_fused(Yl, level0, g0o, g1o):
-        """Fused level-1 inverse (unpack + depth merge + two-sided (H, W)
-        merge in two kernels, ops/pallas_pack3d.py); None off-envelope."""
-        from dtcwt_tpu.ops import pallas_pack3d
-        if isinstance(level0, tuple):
-            re, im = level0
-        else:
-            # band-minor complex -> band-major planes via static slices
-            # (an index permutation would lower to a gather)
-            re = jnp.stack([jnp.real(level0[..., n]) for n in range(28)],
-                           axis=-4)
-            im = jnp.stack([jnp.imag(level0[..., n]) for n in range(28)],
-                           axis=-4)
-        return pallas_pack3d.inv_level1_pack(Yl, re, im, g0o, g1o)
 
     @staticmethod
     def _octants(Yh):
@@ -539,28 +291,11 @@ class Transform3d:
         return out
 
     @staticmethod
-    def _synth(oct_, merge, hw_sum=None):
-        """Separable synthesis.  *merge(a, b, ax)* fuses one stage's branch
-        pair (lowpass-synth of *a* + highpass-synth of *b*) in a single pass
-        (fb dual-stream sum primitives).
-
-        Without *hw_sum* this runs the reference pass order (-2, -3, -1)
-        (transform3d.py:425-435, :485-495).  With *hw_sum* (a
-        :mod:`ops.pallas_hw` two-sided merge, or None-returning outside its
-        envelope) the depth stage runs first and the (H, W) stage pair
-        fuses into one kernel pass — the axis order is immaterial for a
-        separable linear map, and the f64 oracle path never takes this
-        branch (hw_sum is gated on the fast engines)."""
-        if hw_sum is not None:
-            V = {}
-            for j in range(2):
-                for k in range(2):
-                    V[(j, k)] = merge(oct_[(0, j, k)], oct_[(1, j, k)], -3)
-            out = hw_sum(V[(0, 0)], V[(0, 1)], V[(1, 0)], V[(1, 1)])
-            if out is None:
-                out = merge(merge(V[(0, 0)], V[(1, 0)], -2),
-                            merge(V[(0, 1)], V[(1, 1)], -2), -1)
-            return out
+    def _synth(oct_, merge):
+        """Separable synthesis in the reference pass order (-2, -3, -1)
+        (transform3d.py:425-435, :485-495).  *merge(a, b, ax)* fuses one
+        stage's branch pair (lowpass-synth of *a* + highpass-synth of *b*)
+        in a single pass (fb dual-stream sum primitives)."""
         U = {}
         for i in range(2):
             for k in range(2):
@@ -572,14 +307,8 @@ class Transform3d:
 
     def _level2_inv(self, Yl, oct_, curr, g0a, g0b, g1a, g1b, prev_shape):
         sdt = Yl.dtype
-        hw_sum = None
-        if engine.use_pallas():
-            from dtcwt_tpu.ops import pallas_hw
-            hw_sum = lambda *v: pallas_hw.ifilt_sum_hw22(
-                *v, (g0b, g0a), (g1b, g1a))
-        # bf16 is storage: the synthesis stages (kernel or fb fallback)
-        # run at f32 — _octants_planes already promoted the octants, and
-        # the lowpass must match or the hw22 dtype gate would decline.
+        # bf16 is storage: the synthesis stages run at f32, as
+        # _octants_planes already promoted the octants.
         Yl = _comp(Yl)
         oct_ = {k: _comp(v) for k, v in oct_.items()}
         oct_[(0, 0, 0)] = Yl
@@ -587,7 +316,7 @@ class Transform3d:
         def merge(a, b, ax):
             return fb.ifilt2_sum_axis(a, b, (g0b, g0a), (g1b, g1a), ax)
 
-        out = self._synth(oct_, merge, hw_sum)
+        out = self._synth(oct_, merge)
 
         crop = 1 if self.ext_mode == 4 else 2
         for d, ax in enumerate((-3, -2, -1)):
@@ -604,10 +333,6 @@ class Transform3d:
             # x-ranges, transform3d.py:408-413)
             for ax in (-3, -2, -1):
                 Yl = jax.lax.slice_in_dim(Yl, 0, Yl.shape[ax] - 1, axis=ax)
-        hw_sum = None
-        if engine.use_pallas():
-            from dtcwt_tpu.ops import pallas_hw
-            hw_sum = lambda *v: pallas_hw.filter_sum_hw22(*v, g0o, g1o)
         Yl = _comp(Yl)
         oct_ = {k: _comp(v) for k, v in oct_.items()}
         oct_[(0, 0, 0)] = Yl
@@ -615,7 +340,7 @@ class Transform3d:
         def merge(a, b, ax):
             return fb.filter2_sum_axis(a, b, g0o, g1o, ax)
 
-        out = Transform3d._synth(oct_, merge, hw_sum)
+        out = Transform3d._synth(oct_, merge)
         if even:
             for ax in (-3, -2, -1):
                 out = jax.lax.slice_in_dim(out, 1, out.shape[ax], axis=ax)

@@ -29,7 +29,9 @@ def main():
     args = ap.parse_args()
 
     import dtcwt_tpu as dt
-    from dtcwt_tpu.utils import asdevice
+    from dtcwt_tpu.utils import use_compile_cache
+
+    use_compile_cache()
 
     N, lev = args.size, args.level
     t = dt.Transform3d(biort="near_sym_a", qshift="qshift_a")
@@ -43,7 +45,7 @@ def main():
     for band in range(28):
         hp_b = hp.copy()
         hp_b[c[0], c[1], c[2], band] = 1.0
-        bands = list(pyr.highpasses[:lev - 1]) + [asdevice(hp_b)]
+        bands = list(pyr.highpasses[:lev - 1]) + [hp_b]
         rec = np.asarray(t.inverse(dt.Pyramid(pyr.lowpass, tuple(bands))))
         waves.append(rec)
 

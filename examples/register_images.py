@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Register two frames and save the inter-frame transform parameters.
 
-TPU-native counterpart of the reference ``examples/register_images.py``
-(which offered a ``--cl`` OpenCL switch; here the one XLA code path runs on
-whatever accelerator JAX finds, TPU included).
+Counterpart of the reference ``examples/register_images.py`` (which offered
+a ``--cl`` OpenCL switch; here the one XLA code path runs on whatever device
+JAX finds).
 
 Usage:
     python examples/register_images.py <prevframe> <nextframe> <output.npz>
-    python examples/register_images.py --demo <output.npz>   # tennis frames
+    python examples/register_images.py --demo <output.npz>   # synthetic pair
 
 Frames may be ``.npz``/``.npy`` arrays or (with Pillow installed) any image
 file; images are converted to grayscale in [0, 1].  The output npz holds the
@@ -46,7 +46,8 @@ def main():
                     help="<prevframe> <nextframe> <output.npz>, or with "
                          "--demo just <output.npz>")
     ap.add_argument("--demo", action="store_true",
-                    help="use the bundled tennis frame pair")
+                    help="use a smooth random frame and a copy shifted by "
+                         "(3, 2) px")
     ap.add_argument("--nlevels", type=int, default=5)
     args = ap.parse_args()
 
@@ -54,9 +55,12 @@ def main():
 
     if args.demo:
         (out,) = args.paths
-        with np.load("/root/reference/tests/tennis.npz") as f:
-            keys = sorted(f.keys())
-            prev_img, next_img = (f[k].astype(np.float32) for k in keys[:2])
+        spec = np.fft.rfft2(np.random.RandomState(3).rand(512, 512))
+        fy = np.fft.fftfreq(512)[:, None]
+        fx = np.fft.rfftfreq(512)[None, :]
+        spec *= np.exp(-(fy ** 2 + fx ** 2) / (2 * 0.02 ** 2))
+        prev_img = np.fft.irfft2(spec, s=(512, 512)).astype(np.float32)
+        next_img = np.roll(prev_img, (3, 2), axis=(0, 1))
     else:
         prev_path, next_path, out = args.paths
         logging.info("Loading 'prev' image from %s", prev_path)
@@ -66,6 +70,9 @@ def main():
 
     import dtcwt_tpu as dt
     import dtcwt_tpu.registration as reg
+    from dtcwt_tpu.utils import use_compile_cache
+
+    use_compile_cache()
 
     logging.info("Estimating registration (%d levels)", args.nlevels)
     t = dt.Transform2d()

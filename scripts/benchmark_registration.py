@@ -1,8 +1,13 @@
 #!/usr/bin/env python
-"""Benchmark phase-based registration on the tennis frame pair.
+"""Benchmark phase-based registration on a frame pair.
 
 Counterpart of the reference ``scripts/benchmark_registration.py:14-40``
-(6-level transform of the tennis frames + repeated ``estimatereg``).
+(6-level transform of the tennis frames + repeated ``estimatereg``).  Pass
+an ``.npz`` whose first two arrays (sorted by key) are the frames; without
+one, a smooth random 512x512 frame and a copy shifted by (3, 2) px stand
+in.
+
+Usage: python scripts/benchmark_registration.py [frames.npz]
 """
 
 import time
@@ -18,14 +23,31 @@ sys.path.insert(0, os.path.realpath(
 import numpy as np
 
 
+def smooth_pair(n=512, seed=3, sigma=0.02, shift=(3, 2)):
+    """A smooth random frame in [0, 1] and the same frame rolled by
+    *shift* pixels."""
+    spec = np.fft.rfft2(np.random.RandomState(seed).rand(n, n))
+    fy = np.fft.fftfreq(n)[:, None]
+    fx = np.fft.rfftfreq(n)[None, :]
+    spec *= np.exp(-((fy ** 2 + fx ** 2) / (2 * sigma ** 2)))
+    f1 = np.fft.irfft2(spec, s=(n, n)).astype(np.float32)
+    f1 = (f1 - f1.min()) / (f1.max() - f1.min())
+    return f1, np.roll(f1, shift, axis=(0, 1))
+
+
 def main():
     import dtcwt_tpu as dt
     import dtcwt_tpu.registration as reg
+    from dtcwt_tpu.utils import use_compile_cache
 
+    use_compile_cache()
     print("Loading datasets...")
-    with np.load("/root/reference/tests/tennis.npz") as f:
-        keys = sorted(f.keys())
-        f1, f2 = (f[k].astype(np.float32) for k in keys[:2])
+    if len(sys.argv) > 1:
+        with np.load(sys.argv[1]) as f:
+            keys = sorted(f.keys())
+            f1, f2 = (f[k].astype(np.float32) for k in keys[:2])
+    else:
+        f1, f2 = smooth_pair()
 
     print("Transforming datasets...")
     transform = dt.Transform2d()
@@ -37,8 +59,7 @@ def main():
 
     number = 20
 
-    # Per-call host loop (includes dispatch/readback overhead — on remote
-    # device tunnels this is dominated by round-trip latency):
+    # Per-call host loop (includes dispatch and readback overhead):
     t0 = time.perf_counter()
     for _ in range(number):
         np.asarray(reg.estimatereg(t1, t2))

@@ -1,87 +1,60 @@
-"""Import the reference library (/root/reference) as a *test oracle*.
+"""Test oracle: the plain NumPy reference (``tests/reference_np.py``) plus
+seeded synthetic stand-ins for the upstream test images.
 
-The reference targets numpy<2 and python2-era APIs; this module installs the
-minimal compatibility shims (np.asfarray / np.int / np.issubsctype) before
-importing it.  The oracle is used only inside tests, to assert bit-level
-parity of the new TPU-native implementation with the reference semantics.
+The upstream suite drew its inputs from image files (mandrill, a quantized
+band-limited noise volume, traffic frames).  Those files are not part of
+this repository, so the tests here use generated inputs of the same kind:
+a textured 512x512 image, a band-limited noise volume and a smooth frame
+pair related by a known shift.  Golden cases whose expected values were
+computed from the original files skip with a reason (``test_golden.py``).
 """
-
-import sys
 
 import numpy as np
 
-REFERENCE_PATH = "/root/reference"
+from tests import reference_np as ref  # noqa: F401  (re-exported)
 
 
-def _install_numpy_shims():
-    if not hasattr(np, "asfarray"):
-        def asfarray(a, dtype=np.float64):
-            dt = np.dtype(dtype)
-            if not np.issubdtype(dt, np.inexact):
-                dt = np.dtype(np.float64)
-            return np.asarray(a, dtype=dt)
-        np.asfarray = asfarray
-    if not hasattr(np, "int"):
-        np.int = int
-    if not hasattr(np, "float"):
-        np.float = float
-    if not hasattr(np, "issubsctype"):
-        np.issubsctype = np.issubdtype
+def _band_limited(shape, sigma, rng):
+    """White noise low-passed by a Gaussian of *sigma* cycles/sample."""
+    spec = np.fft.fftn(rng.rand(*shape))
+    r2 = sum(np.fft.fftfreq(n).reshape((-1,) + (1,) * (len(shape) - 1 - i))
+             ** 2 for i, n in enumerate(shape))
+    out = np.real(np.fft.ifftn(spec * np.exp(-r2 / (2 * sigma ** 2))))
+    return (out - out.min()) / (out.max() - out.min())
 
 
-def load_reference():
-    """Return the reference ``dtcwt`` package, importing it on first use."""
-    _install_numpy_shims()
-    if REFERENCE_PATH not in sys.path:
-        sys.path.insert(0, REFERENCE_PATH)
-    import dtcwt as ref_dtcwt  # noqa: F401
-    import dtcwt.numpy.lowlevel  # noqa: F401
-    import dtcwt.numpy  # noqa: F401
+def textured_image(shape=(512, 512), seed=0):
+    """Textured float64 image in [0, 1]: a smooth field plus finer detail,
+    so every subband of every level carries energy."""
+    rng = np.random.RandomState(seed)
+    x = (0.7 * _band_limited(shape, 0.02, rng)
+         + 0.3 * _band_limited(shape, 0.15, rng))
+    return (x - x.min()) / (x.max() - x.min())
 
-    # numpy 2 changed batched linalg.solve semantics: solve(A, b) with
-    # b.ndim == A.ndim - 1 is no longer "stack of vectors".  The reference's
-    # solvetransform relies on the old behaviour; restore it (identical
-    # math) so the oracle still runs.
-    import dtcwt.registration as _rreg
 
-    def _solvetransform(Qtilde_vec):
-        Q = np.zeros(Qtilde_vec.shape[:-1] + (36,))
-        Q[..., _rreg.Q_TRIU_FLAT_INDICES] = Qtilde_vec[..., :21]
-        q = Qtilde_vec[..., -6:]
-        Q = np.reshape(Q, Qtilde_vec.shape[:-1] + (6, 6))
-        return np.linalg.solve(Q, -q[..., None])[..., 0]
+def mandrill():
+    """The 512x512 test image used where the upstream suite used mandrill."""
+    return textured_image((512, 512), seed=0)
 
-    _rreg.solvetransform = _solvetransform
 
-    # numpy 2 requires tuple (not list) multi-axis indices; the reference's
-    # _boxfilter indexes with a list (registration.py:433-442).  Same math.
-    import dtcwt.utils as _rutils
+def qbgn(n=32, seed=0):
+    """Quantized band-limited Gaussian noise volume, n^3, integer levels."""
+    rng = np.random.RandomState(seed)
+    return np.round(255 * _band_limited((n, n, n), 0.1, rng))
 
-    def _boxfilter(X, kernel_size):
-        if kernel_size % 2 == 0:
-            raise ValueError("Kernel size must be odd")
-        for axis_idx in range(2):
-            slices = [slice(None)] * len(X.shape)
-            out = X
-            for delta in range(1, 1 + (kernel_size - 1) // 2):
-                for sgn in (1, -1):
-                    slices[axis_idx] = _rutils.reflect(
-                        np.arange(X.shape[axis_idx]) + sgn * delta,
-                        -0.5, X.shape[axis_idx] - 0.5).astype(int)
-                    out = out + X[tuple(slices)]
-            X = out / kernel_size
-        return X
 
-    _rreg._boxfilter = _boxfilter
-    return ref_dtcwt
+def smooth_pair(shape=(256, 384), shift=(3, 2), seed=3, sigma=0.02):
+    """A smooth random frame and the same frame rolled by *shift* pixels —
+    the structure a phase-based registration can lock onto."""
+    f1 = _band_limited(shape, sigma, np.random.RandomState(seed))
+    return f1, np.roll(f1, shift, axis=(0, 1))
 
 
 def summarise_mat(M, apron=8):
     """Summary matrix: keep the four apron-sized corners exactly, replace
     edge strips by their means along the interior axis and the interior by
-    its scalar mean — the MATLAB-verification storage scheme (behavioural
-    port of reference ``tests/util.py:47-60``; rationale comment at
-    ``tests/test_againstmatlab.py:15-35``)."""
+    its scalar mean — the MATLAB-verification storage scheme of the
+    upstream suite."""
     M = np.asarray(M)
     c = M[apron:-apron, apron:-apron, ...]
     centre = c.mean(axis=0, keepdims=True).mean(axis=1, keepdims=True)[0, 0]
@@ -100,20 +73,7 @@ def summarise_mat(M, apron=8):
 
 
 def summarise_cube(M, apron=4):
-    """Per-plane :func:`summarise_mat` over the third axis (reference
-    ``tests/util.py:62-66``)."""
+    """Per-plane :func:`summarise_mat` over the third axis."""
     M = np.asarray(M)
     return np.dstack([summarise_mat(M[:, :, i, ...], apron)
                       for i in range(M.shape[2])])
-
-
-def mandrill():
-    """The 512x512 float64 mandrill test image in [0, 1]."""
-    with np.load(REFERENCE_PATH + "/tests/mandrill.npz") as f:
-        return f["mandrill"].astype(np.float64)
-
-
-def qbgn():
-    """The 128^3 quantized band-limited Gaussian noise test volume."""
-    with np.load(REFERENCE_PATH + "/tests/qbgn.npz") as f:
-        return f["qbgn"].astype(np.float64)

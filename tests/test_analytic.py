@@ -299,7 +299,7 @@ def test_1d_dc_gain_from_coefficients():
 
 # ---------------------------------------------------------------------------
 # 3-D gates: the 28 directional subbands (Chen & Kingsbury 2012 eqs (6)-(9);
-# reference comment /root/reference/dtcwt/numpy/transform3d.py:550-553)
+# upstream comment dtcwt/numpy/transform3d.py:550-553)
 # ---------------------------------------------------------------------------
 
 def test_3d_octant_selectivity_matches_theory():
@@ -449,7 +449,7 @@ def test_bp_diagonal_centre_frequency_from_coefficients():
 def test_bp_nondiagonal_bands_match_standard_family():
     """bp touches ONLY the diagonal pair: the other four subbands and the
     lowpass must equal the base family's bit-for-bit (reference contract:
-    /root/reference/dtcwt/numpy/transform2d.py:116-127 uses h2o only for
+    upstream dtcwt/numpy/transform2d.py:116-127 uses h2o only for
     bands 1 and 4)."""
     rng = np.random.RandomState(9)
     X = rng.randn(128, 128)

@@ -1,11 +1,10 @@
 """bfloat16 storage path + complex-free plane packing.
 
-bf16 is the TPU-idiomatic storage dtype (half the HBM traffic of f32 for a
+bf16 is a storage dtype (half the device-memory traffic of f32 for a
 memory-bound transform).  There is no bf16 complex dtype, so bf16 pyramids
 exist only in the plane layout (band-major re/im planes); the interleaved
 layout promotes to f32/complex64.  Arithmetic discipline: bf16 arrays are
-*storage* — the XLA-path filter math runs at f32 (utils.compute_view), and
-the Pallas kernels accumulate at f32 internally on bf16 slabs.
+*storage* — the filter math runs at f32 (utils.compute_view).
 
 Also pins q2c_planes/c2q_planes (ops/packing.py) against the complex
 originals: same quad math as the reference ``numpy/transform2d.py:301-350``
@@ -15,10 +14,8 @@ with no complex intermediate.
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 import dtcwt_tpu as dt
-from dtcwt_tpu.ops import engine
 from dtcwt_tpu.ops.packing import q2c, c2q, q2c_planes, c2q_planes
 
 # bf16 mantissa is 8 bits (eps ~ 7.8e-3); a 3-level roundtrip of an O(1)
@@ -52,28 +49,24 @@ def test_c2q_planes_matches_c2q():
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-12)
 
 
-@pytest.mark.parametrize("eng", ["xla", "pallas"])
-def test_bf16_planes_roundtrip_2d(eng):
+def test_bf16_planes_roundtrip_2d():
     x = _rand((128, 128))
     t = dt.Transform2d()
-    with engine.engine(eng):
-        p = t.forward(jnp.asarray(x, jnp.bfloat16), 3, layout="planes")
-        assert p.lowpass.dtype == jnp.bfloat16
-        assert all(r.dtype == jnp.bfloat16 for r in p.highpasses_re)
-        rec = t.inverse(p)
+    p = t.forward(jnp.asarray(x, jnp.bfloat16), 3, layout="planes")
+    assert p.lowpass.dtype == jnp.bfloat16
+    assert all(r.dtype == jnp.bfloat16 for r in p.highpasses_re)
+    rec = t.inverse(p)
     assert rec.dtype == jnp.bfloat16
     err = float(np.abs(np.asarray(rec, np.float32) - x).max())
     assert err < BF16_TOL_2D, err
 
 
-@pytest.mark.parametrize("eng", ["xla", "pallas"])
-def test_bf16_planes_roundtrip_3d(eng):
+def test_bf16_planes_roundtrip_3d():
     v = _rand((16, 32, 32), seed=2)
     t3 = dt.Transform3d()
-    with engine.engine(eng):
-        p = t3.forward(jnp.asarray(v, jnp.bfloat16), 2, layout="planes")
-        assert p.lowpass.dtype == jnp.bfloat16
-        rec = t3.inverse(p)
+    p = t3.forward(jnp.asarray(v, jnp.bfloat16), 2, layout="planes")
+    assert p.lowpass.dtype == jnp.bfloat16
+    rec = t3.inverse(p)
     assert rec.dtype == jnp.bfloat16
     err = float(np.abs(np.asarray(rec, np.float32) - v).max())
     assert err < BF16_TOL_3D, err
@@ -97,9 +90,8 @@ def test_bf16_tracks_f32_path():
     computation: subband planes must agree to bf16 resolution."""
     x = _rand((64, 96), seed=5)
     t = dt.Transform2d()
-    with engine.engine("xla"):
-        pf = t.forward(x, 2, layout="planes")
-        pb = t.forward(jnp.asarray(x, jnp.bfloat16), 2, layout="planes")
+    pf = t.forward(x, 2, layout="planes")
+    pb = t.forward(jnp.asarray(x, jnp.bfloat16), 2, layout="planes")
     for rf, rb in zip(pf.highpasses_re, pb.highpasses_re):
         err = float(np.abs(np.asarray(rf)
                            - np.asarray(rb, np.float32)).max())
@@ -114,11 +106,10 @@ def test_bf16_gain_mask():
     t = dt.Transform2d()
     gm = np.ones((6, 2), np.float32)
     gm[3, :] = 0.0
-    with engine.engine("xla"):
-        pf = t.forward(x, 2, layout="planes")
-        want = t.inverse(pf, gm)                      # f32 oracle
-        pb = t.forward(jnp.asarray(x, jnp.bfloat16), 2, layout="planes")
-        got = t.inverse(pb, gm)
+    pf = t.forward(x, 2, layout="planes")
+    want = t.inverse(pf, gm)                      # f32 oracle
+    pb = t.forward(jnp.asarray(x, jnp.bfloat16), 2, layout="planes")
+    got = t.inverse(pb, gm)
     assert got.dtype == jnp.bfloat16
     err = float(np.abs(np.asarray(want)
                        - np.asarray(got, np.float32)).max())
@@ -164,10 +155,9 @@ def test_bf16_interleaved_view():
     Pyramid (bf16 has no complex dtype) tracking the f32 pyramid."""
     x = _rand((64, 64), seed=8)
     t = dt.Transform2d()
-    with engine.engine("xla"):
-        pb = t.forward(jnp.asarray(x, jnp.bfloat16), 2, layout="planes")
-        pi = pb.interleaved()
-        pf = t.forward(x, 2)
+    pb = t.forward(jnp.asarray(x, jnp.bfloat16), 2, layout="planes")
+    pi = pb.interleaved()
+    pf = t.forward(x, 2)
     assert pi.highpasses[0].dtype == jnp.complex64
     assert pi.lowpass.dtype == jnp.float32
     err = float(np.abs(np.asarray(pi.highpasses[0])
@@ -198,9 +188,8 @@ def test_f64_unaffected():
     verification path still reconstructs to 1e-12."""
     x = _rand((64, 64), seed=7).astype(np.float64)
     t = dt.Transform2d()
-    with engine.engine("xla"):
-        p = t.forward(x, 3, layout="planes")
-        assert p.highpasses_re[0].dtype == jnp.float64
-        rec = t.inverse(p)
+    p = t.forward(x, 3, layout="planes")
+    assert p.highpasses_re[0].dtype == jnp.float64
+    rec = t.inverse(p)
     assert rec.dtype == jnp.float64
     assert float(np.abs(np.asarray(rec) - x).max()) < 1e-12

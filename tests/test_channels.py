@@ -1,7 +1,7 @@
 """Batched/multi-channel layout adapter tests.
 
 Parity surface: the reference TF backend's ``forward_channels`` /
-``inverse_channels`` (``/root/reference/dtcwt/tf/transform2d.py:179-336,
+``inverse_channels`` (upstream ``dtcwt/tf/transform2d.py:179-336,
 422-588`` and ``tf/transform1d.py:150-215,293-371``) with the six data
 formats nhw/chw/hwn/hwc/nchw/nhwc.  Since the core transform here is batched
 over arbitrary leading axes, the adapters are pure layout permutations; the

@@ -1,6 +1,8 @@
 """Bit-level parity of the polyphase filter-bank primitives against the
-reference NumPy implementation, across every shipped wavelet family (both
-m/2 parities, both signs of sum(ha*hb)), odd/even sizes and edge cases."""
+plain NumPy reference (``tests/reference_np.py``), across every shipped
+wavelet family (both m/2 parities, both signs of sum(ha*hb)), odd/even sizes
+and edge cases, plus f32 parity of the axis-parameterised ops on batched
+inputs, the minor axis and widths that are not powers of two."""
 
 import numpy as np
 import pytest
@@ -8,10 +10,7 @@ import pytest
 from dtcwt_tpu import coeffs
 from dtcwt_tpu.ops import fb
 
-from . import oracle
-
-ref = oracle.load_reference()
-from dtcwt.numpy import lowlevel as ref_ll  # noqa: E402
+from .oracle import ref as ref_ll
 
 RNG = np.random.RandomState(42)
 X64 = RNG.randn(64, 48)
@@ -140,3 +139,59 @@ def test_zero_input_gives_zero():
     z = np.zeros((16, 8))
     assert np.all(np.asarray(fb.colifilt(z, tab[4], tab[5])) == 0.0)
     assert np.all(np.asarray(fb.coldfilt(z, tab[4], tab[5])) == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# f32 parity along any axis of batched arrays: the shapes the transforms
+# feed the primitives (leading batch axes, the minor axis, widths that are
+# not powers of two).  Tolerance: f32 rounding of <= 19-tap sums of O(1)
+# values, against the f64 reference on the same f32-valued input.
+# ---------------------------------------------------------------------------
+
+TOL_F32 = 1e-4
+H0O, _, H1O, _ = coeffs.biort("near_sym_a")
+QA, QD = coeffs.qshift("qshift_a"), coeffs.qshift("qshift_d")
+
+
+def _ref_along(f, x, axis, *taps):
+    """Reference column filter *f* applied along *axis* of a batched x."""
+    xm = np.moveaxis(np.asarray(x, np.float64), axis, 0)
+    y = f(xm.reshape(xm.shape[0], -1), *taps)
+    return np.moveaxis(y.reshape((y.shape[0],) + xm.shape[1:]), 0, axis)
+
+
+def _f32_err(got, want):
+    got = np.asarray(got)
+    assert got.dtype == np.float32
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (2, 64, 96), (36, 128),
+                                   (3, 2, 32, 32), (8, 130)])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("h", [H0O, H1O], ids=["h0o", "h1o"])
+def test_filter_axis_f32_matches_reference(shape, axis, h):
+    x = np.random.RandomState(0).randn(*shape).astype(np.float32)
+    want = _ref_along(ref_ll.colfilter, x, axis, h)
+    assert _f32_err(fb.filter_axis(x, h, axis), want) < TOL_F32
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (2, 64, 96), (16, 128)])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("fam", [QA, QD], ids=["qshift_a", "qshift_d"])
+def test_dfilt_axis_f32_matches_reference(shape, axis, fam):
+    x = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    for ha, hb in [(fam[1], fam[0]), (fam[5], fam[4])]:
+        want = _ref_along(ref_ll.coldfilt, x, axis, ha, hb)
+        assert _f32_err(fb.dfilt_axis(x, ha, hb, axis), want) < TOL_F32
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (2, 64, 96), (16, 128)])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("fam", [QA, QD], ids=["qshift_a", "qshift_d"])
+def test_ifilt_axis_f32_matches_reference(shape, axis, fam):
+    x = np.random.RandomState(2).randn(*shape).astype(np.float32)
+    for ha, hb in [(fam[2], fam[3]), (fam[6], fam[7])]:
+        want = _ref_along(ref_ll.colifilt, x, axis, ha, hb)
+        assert _f32_err(fb.ifilt_axis(x, ha, hb, axis), want) < TOL_F32

@@ -1,6 +1,6 @@
 """Lane-folded 1-D path == flat path, bit-for-bit (f64).
 
-A single long signal occupies one lane of the TPU's (8, 128) vector layout;
+A single long signal is one column of an [N, 1] array;
 ``transform1d`` folds it into segments-as-lanes with neighbour-segment halos
 (the single-chip analogue of the sharded signal-axis path).  The fold is a
 pure re-layout: results must match the flat transform exactly.

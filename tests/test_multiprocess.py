@@ -1,9 +1,9 @@
 """Multi-process GOP pipeline smoke test.
 
 Launches the video-registration example across TWO local CPU processes
-connected through ``jax.distributed.initialize`` (the TPU-native analogue
+connected through ``jax.distributed.initialize`` (the JAX analogue
 of the reference's MPI scatter/gather,
-``/root/reference/examples/register_video.py:93-180``), asserting that
+upstream ``examples/register_video.py:93-180``), asserting that
 
 * the two ranks process disjoint GOPs (round-robin sharding),
 * per-GOP part files checkpoint/resume,

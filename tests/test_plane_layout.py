@@ -2,14 +2,14 @@
 
 ``Transform2d.forward(..., layout='planes')`` returns a
 :class:`dtcwt_tpu.PlanePyramid` holding each level's subbands as band-major
-re/im f32 planes in ``PLANE_BAND_ORDER`` — the fused TPU kernels' native
-layout (no complex ``[..., 6]`` interleave on the forward, no band re-split
-on the inverse).  These tests pin the layout's contract:
+re/im real planes in ``PLANE_BAND_ORDER`` (no complex ``[..., 6]``
+interleave on the forward, no band re-split on the inverse; the only layout
+that stores bfloat16).  These tests pin the layout's contract:
 
 * planes -> interleaved conversion reproduces the standard pyramid exactly
-* the inverse accepts either container and agrees to engine tolerance
+* the inverse accepts either container and agrees to f32 tolerance
 * gain_mask semantics match the reference's degree-order convention
-* gradients flow through the plane path (linear-transpose VJP)
+* gradients flow through the plane path
 """
 
 import numpy as np
@@ -19,7 +19,6 @@ import pytest
 
 import dtcwt_tpu as dt
 from dtcwt_tpu import PlanePyramid, PLANE_BAND_ORDER
-from dtcwt_tpu.ops import engine
 
 
 def _rand(shape, seed=0, dtype=np.float32):
@@ -36,21 +35,20 @@ def test_plane_band_order_is_a_permutation():
 def test_planes_match_interleaved_f64_xla():
     t = dt.Transform2d()
     x = _rand((128, 256), dtype=np.float64)
-    with engine.engine("xla"):
-        p = t.forward(x, 3)
-        pp = t.forward(x, 3, layout="planes")
-        assert isinstance(pp, PlanePyramid)
-        assert pp.nlevels == 3
-        for re in pp.highpasses_re:
-            assert re.shape[-3] == 6
-        pi = pp.interleaved()
-        for a, b in zip(p.highpasses, pi.highpasses):
-            assert float(jnp.abs(a - b).max()) < 1e-12
-        r = t.inverse(pp)
+    p = t.forward(x, 3)
+    pp = t.forward(x, 3, layout="planes")
+    assert isinstance(pp, PlanePyramid)
+    assert pp.nlevels == 3
+    for re in pp.highpasses_re:
+        assert re.shape[-3] == 6
+    pi = pp.interleaved()
+    for a, b in zip(p.highpasses, pi.highpasses):
+        assert float(jnp.abs(a - b).max()) < 1e-12
+    r = t.inverse(pp)
     assert float(jnp.abs(r - x).max()) < 1e-11
 
 
-def test_planes_match_interleaved_pallas():
+def test_planes_match_interleaved_f32():
     t = dt.Transform2d()
     x = _rand((64, 512))
     p = t.forward(x, 3)
@@ -74,11 +72,10 @@ def test_gain_mask_degree_order_convention():
     t = dt.Transform2d()
     x = _rand((64, 256), dtype=np.float64)
     gm = np.linspace(0.0, 1.5, 18).reshape(6, 3)
-    with engine.engine("xla"):
-        p = t.forward(x, 3)
-        pp = t.forward(x, 3, layout="planes")
-        r1 = t.inverse(p, gm)
-        r2 = t.inverse(pp, gm)
+    p = t.forward(x, 3)
+    pp = t.forward(x, 3, layout="planes")
+    r1 = t.inverse(p, gm)
+    r2 = t.inverse(pp, gm)
     assert float(jnp.abs(r1 - r2).max()) < 1e-12
 
 
@@ -93,8 +90,8 @@ def test_bp_variant_planes():
 
 
 def test_batched_and_fallback_shapes():
-    """Shapes outside the fused-kernel envelope fall back to the XLA path
-    but keep the plane-layout contract."""
+    """Batched inputs and sizes that are not powers of two keep the
+    plane-layout contract."""
     t = dt.Transform2d()
     x = _rand((3, 2, 62, 130), seed=2)
     pp = t.forward(x, 2, layout="planes")
@@ -109,7 +106,7 @@ def test_grad_through_plane_layout():
     x = jnp.asarray(_rand((64, 256)))
 
     def loss(a):
-        p = t._forward_impl(a, nlevels=2, include_scale=False,
+        p = t._forward_body(a, nlevels=2, include_scale=False,
                             layout="planes")
         s = sum(jnp.sum(v ** 2) for v in p.highpasses_re)
         s += sum(jnp.sum(v ** 2) for v in p.highpasses_im)
@@ -145,20 +142,19 @@ def test_layout_validation():
 def test_3d_planes_match_interleaved_f64_xla():
     t3 = dt.Transform3d()
     v = _rand((32, 32, 32), dtype=np.float64)
-    with engine.engine("xla"):
-        p = t3.forward(v, 3)
-        pp = t3.forward(v, 3, layout="planes")
-        assert isinstance(pp, PlanePyramid) and pp.kind == "3d"
-        assert pp.highpasses_re[0].shape[-4] == 28
-        for a, b in zip(p.highpasses, pp.interleaved().highpasses):
-            assert float(jnp.abs(a - b).max()) < 1e-13
-        r = t3.inverse(pp)
-        rs = t3.inverse(p)
+    p = t3.forward(v, 3)
+    pp = t3.forward(v, 3, layout="planes")
+    assert isinstance(pp, PlanePyramid) and pp.kind == "3d"
+    assert pp.highpasses_re[0].shape[-4] == 28
+    for a, b in zip(p.highpasses, pp.interleaved().highpasses):
+        assert float(jnp.abs(a - b).max()) < 1e-13
+    r = t3.inverse(pp)
+    rs = t3.inverse(p)
     assert float(jnp.abs(r - rs).max()) < 1e-13
     assert float(jnp.abs(r - v).max()) < 1e-10
 
 
-def test_3d_planes_pallas_and_discard_level_1():
+def test_3d_planes_f32_and_discard_level_1():
     t3 = dt.Transform3d()
     v = _rand((32, 32, 32))
     pp = t3.forward(v, 2, layout="planes")

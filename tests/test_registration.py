@@ -1,6 +1,6 @@
-"""Registration: component parity with the reference implementation and the
-reference's own behavioral gate (warped error < unwarped error) on the
-traffic frames."""
+"""Registration: component parity with the plain NumPy reference and the
+upstream behavioral gate (warped error < unwarped error) on a smooth
+synthetic frame pair related by a known shift."""
 
 import numpy as np
 
@@ -8,20 +8,11 @@ from dtcwt_tpu import Transform2d
 from dtcwt_tpu import registration as reg
 
 from . import oracle
+from .oracle import ref as rreg
 
-ref = oracle.load_reference()
-import dtcwt.registration as rreg  # noqa: E402
-from dtcwt.numpy import Transform2d as RefTransform2d  # noqa: E402
+RefTransform2d = rreg.Transform2d
 
-
-def _frames(name="traffic"):
-    with np.load(oracle.REFERENCE_PATH + "/tests/%s.npz" % name) as f:
-        f1 = f["f1"].astype(np.float64)
-        f2 = f["f2"].astype(np.float64)
-    return (f1 / f1.max(), f2 / f2.max())
-
-
-F1, F2 = _frames()
+F1, F2 = oracle.smooth_pair((256, 384), shift=(3, 2))
 # crop for component tests (fast); full frames for the behavioral gate
 C1, C2 = F1[:128, :192], F2[:128, :192]
 
@@ -77,7 +68,7 @@ def test_solvetransform_matches():
 def test_boxfilter_matches():
     rng = np.random.RandomState(2)
     X = rng.randn(16, 12, 3)
-    want = rreg._boxfilter(X.copy(), 3)
+    want = rreg.boxfilter(X.copy(), 3)
     got = np.asarray(reg._boxfilter(X, 3))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
@@ -113,8 +104,8 @@ def test_estimatereg_matches_reference():
 
 
 def test_estimatereg_accepts_plane_pyramids():
-    """Plane-layout pyramids (the TPU-native forward output) feed
-    estimatereg directly and give the interleaved result exactly."""
+    """Plane-layout pyramids feed estimatereg directly and give the
+    interleaved result exactly."""
     q1 = T.forward(C1, nlevels=4, layout="planes")
     q2 = T.forward(C2, nlevels=4, layout="planes")
     want = np.asarray(reg.estimatereg(P1, P2))
@@ -130,7 +121,7 @@ def test_estimatereg_accepts_plane_pyramids():
 
 
 def test_estimatereg_behavioral_gate():
-    """Reference test_registration.py:27-37 on the full traffic frames."""
+    """Upstream test_registration.py:27-37 on the full frame pair."""
     nlevels = 6
     t1 = T.forward(F1, nlevels=nlevels)
     t2 = T.forward(F2, nlevels=nlevels)

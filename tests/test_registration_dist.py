@@ -1,7 +1,7 @@
 """Distributed registration == single-device registration (f64), on the
 virtual 8-device CPU mesh.  The per-pixel Qtilde accumulation shards over
 the mesh rows axis and the global Qt reduction lowers to a psum
-(reference reduction: ``/root/reference/dtcwt/registration.py:346-350``)."""
+(upstream reduction: ``dtcwt/registration.py:346-350``)."""
 
 import numpy as np
 import pytest
@@ -11,12 +11,16 @@ import dtcwt_tpu as dt
 from dtcwt_tpu import registration as reg
 from dtcwt_tpu.parallel import make_mesh, estimatereg_sharded
 
+from . import oracle
+
 
 @pytest.fixture(scope="module")
 def traffic_pyramids():
-    f = np.load("/root/reference/tests/traffic.npz")
+    """A 256x384 smooth frame pair 3 px apart (the upstream suite used two
+    traffic-video frames)."""
+    f1, f2 = oracle.smooth_pair((256, 384), shift=(3, 2))
     t = dt.Transform2d()
-    return (t.forward(f["f1"], nlevels=6), t.forward(f["f2"], nlevels=6))
+    return (t.forward(f1, nlevels=6), t.forward(f2, nlevels=6))
 
 
 @pytest.mark.parametrize("mesh_shape,names", [

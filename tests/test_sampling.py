@@ -7,9 +7,7 @@ import pytest
 from dtcwt_tpu import sampling as S
 
 from . import oracle
-
-ref = oracle.load_reference()
-import dtcwt.sampling as RS  # noqa: E402
+from .oracle import ref as RS
 
 RNG = np.random.RandomState(11)
 IM = RNG.randn(32, 24)

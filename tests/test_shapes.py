@@ -31,7 +31,7 @@ def _cdt(dtype):
 def test_transform2d_shapes(shape, nlevels, dtype):
     t = dt.Transform2d()
     p = jax.eval_shape(
-        lambda x: t._forward_impl(x, nlevels=nlevels, include_scale=True),
+        lambda x: t._forward_body(x, nlevels=nlevels, include_scale=True),
         _spec(shape, dtype))
     lead, (H, W) = shape[:-2], shape[-2:]
     assert p.lowpass.shape == lead + (H, W) if nlevels == 0 else True
@@ -49,9 +49,9 @@ def test_transform2d_shapes(shape, nlevels, dtype):
         assert p.scales[level].dtype == dtype
     assert p.lowpass.shape == lead + (h, w)
     # inverse restores the (even-extended) input shape
-    r = jax.eval_shape(lambda q: t._inverse_impl(q, None),
+    r = jax.eval_shape(lambda q: t._inverse_body(q, None),
                        jax.eval_shape(
-                           lambda x: t._forward_impl(
+                           lambda x: t._forward_body(
                                x, nlevels=nlevels, include_scale=False),
                            _spec(shape, dtype)))
     assert r.shape == lead + (H + H % 2, W + W % 2)
@@ -63,7 +63,7 @@ def test_transform2d_shapes(shape, nlevels, dtype):
 def test_transform1d_shapes(N, C, nlevels):
     t = dt.Transform1d()
     p = jax.eval_shape(
-        lambda x: t._forward_impl(x, nlevels=nlevels, include_scale=False),
+        lambda x: t._forward_body(x, nlevels=nlevels, include_scale=False),
         _spec((N, C)))
     n = N
     for level in range(nlevels):
@@ -82,14 +82,14 @@ def test_transform1d_shapes(N, C, nlevels):
 def test_transform3d_shapes(shape, nlevels, ext_mode):
     t = dt.Transform3d(ext_mode=ext_mode)
     p = jax.eval_shape(
-        lambda x: t._forward_impl(x, nlevels=nlevels, include_scale=False,
+        lambda x: t._forward_body(x, nlevels=nlevels, include_scale=False,
                                   discard_level_1=False),
         _spec(shape))
     for level in range(nlevels):
         hp = p.highpasses[level]
         assert hp.shape[-1] == 28
         assert hp.dtype == jnp.complex128
-    r = jax.eval_shape(lambda q: t._inverse_impl(q), p)
+    r = jax.eval_shape(lambda q: t._inverse_body(q), p)
     assert r.shape == shape
 
 

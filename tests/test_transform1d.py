@@ -6,10 +6,9 @@ import pytest
 
 from dtcwt_tpu import Transform1d
 
-from . import oracle
+from .oracle import ref
 
-ref = oracle.load_reference()
-from dtcwt.numpy import Transform1d as RefTransform1d  # noqa: E402
+RefTransform1d = ref.Transform1d
 
 RNG = np.random.RandomState(21)
 

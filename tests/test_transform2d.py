@@ -12,9 +12,9 @@ import dtcwt_tpu
 from dtcwt_tpu import Transform2d
 
 from . import oracle
+from .oracle import ref
 
-ref = oracle.load_reference()
-from dtcwt.numpy import Transform2d as RefTransform2d  # noqa: E402
+RefTransform2d = ref.Transform2d
 
 RNG = np.random.RandomState(7)
 MANDRILL = oracle.mandrill()

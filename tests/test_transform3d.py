@@ -8,9 +8,9 @@ import pytest
 from dtcwt_tpu.transforms.transform3d import Transform3d
 
 from . import oracle
+from .oracle import ref
 
-ref = oracle.load_reference()
-from dtcwt.numpy import Transform3d as RefTransform3d  # noqa: E402
+RefTransform3d = ref.Transform3d
 
 RNG = np.random.RandomState(5)
 

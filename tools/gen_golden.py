@@ -1,16 +1,16 @@
-"""Regenerate the golden verification summaries from the reference library.
+"""Regenerate the golden verification summaries from the upstream test images.
 
-The reference test suite compares against ``tests/verification.npz``, a file
-of MATLAB-derived *summary matrices* that is absent from the reference
-checkout and normally rebuilt by ``matlab/regen_verification.sh`` (reference
-``matlab/gen_verif.m:26-71``).  Without a MATLAB installation the practical
-re-derivation (SURVEY.md section 4) is to run the reference's own NumPy
-backend — itself validated against MATLAB upstream — over exactly the same
-inputs and store the same summary keys.  This script does that; the output
-is committed at ``tests/golden/verification.npz`` and consumed by
-``tests/test_golden.py``.
+The upstream test suite compares against ``tests/verification.npz``, a file
+of MATLAB-derived *summary matrices* rebuilt by ``matlab/regen_verification.sh``
+(upstream ``matlab/gen_verif.m:26-71``).  Without a MATLAB installation the
+practical re-derivation (SURVEY.md section 4) is to run a plain NumPy
+implementation of the transform over exactly the same inputs and store the
+same summary keys.  This script does that with ``tests/reference_np.py``;
+the output is committed at ``tests/golden/verification.npz`` and consumed by
+``tests/test_golden.py``.  The input images (``mandrill.npz``, ``qbgn.npz``
+from the upstream ``tests/`` directory) are not part of this repository.
 
-Run from the repo root:  python tools/gen_golden.py
+Run from the repo root:  python tools/gen_golden.py <dir with the images>
 """
 
 import os
@@ -18,19 +18,15 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
-from oracle import load_reference, summarise_mat, summarise_cube  # noqa: E402
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from tests import reference_np as R  # noqa: E402
+from tests.oracle import summarise_mat, summarise_cube  # noqa: E402
 
 
 def main():
-    ref = load_reference()
-    import dtcwt.compat as compat
-    import dtcwt.sampling as sampling
-    from dtcwt.coeffs import biort, qshift
-    from dtcwt.numpy.lowlevel import coldfilt, colifilt
-    from dtcwt.numpy import Transform3d
-
-    refdir = "/root/reference/tests"
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    refdir = sys.argv[1]
     mandrill = np.load(os.path.join(refdir, "mandrill.npz"))["mandrill"]
     mandrill = mandrill.astype(np.float64)
     qbgn = np.load(os.path.join(refdir, "qbgn.npz"))["qbgn"].astype(np.float64)
@@ -38,14 +34,13 @@ def main():
     out = {}
 
     # Dual filters with the longest published family (gen_verif.m:33-36)
-    h0o, g0o, h1o, g1o = biort("near_sym_b")
-    h0a, h0b, g0a, g0b, h1a, h1b, g1a, g1b = qshift("qshift_d")
-    out["mandrill_coldfilt"] = summarise_mat(coldfilt(mandrill, h1b, h1a))
-    out["mandrill_colifilt"] = summarise_mat(colifilt(mandrill, g0b, g0a))
+    h0a, h0b, g0a, g0b, h1a, h1b, g1a, g1b = R.qshift("qshift_d")
+    out["mandrill_coldfilt"] = summarise_mat(R.coldfilt(mandrill, h1b, h1a))
+    out["mandrill_colifilt"] = summarise_mat(R.colifilt(mandrill, g0b, g0a))
 
     # 4-level standard 2-D transform (gen_verif.m:38-44)
-    Yl, Yh, Yscale = compat.dtwavexfm2(mandrill, 4, "near_sym_a", "qshift_a",
-                                       include_scale=True)
+    Yl, Yh, Yscale = R.Transform2d("near_sym_a", "qshift_a").forward(
+        mandrill, 4, include_scale=True)
     out["mandrill_Yl"] = summarise_mat(Yl)
     for i, a in enumerate(Yh):
         out["mandrill_Yh_%d" % i] = summarise_mat(a)
@@ -53,8 +48,8 @@ def main():
         out["mandrill_Yscale_%d" % i] = summarise_mat(a)
 
     # 4-level bandpass (rotationally symmetric) variant (gen_verif.m:46-52)
-    Ylb, Yhb, Yscaleb = compat.dtwavexfm2b(mandrill, 4, "near_sym_b_bp",
-                                           "qshift_b_bp", include_scale=True)
+    Ylb, Yhb, Yscaleb = R.Transform2d("near_sym_b_bp", "qshift_b_bp").forward(
+        mandrill, 4, include_scale=True)
     out["mandrill_Ylb"] = summarise_mat(Ylb)
     for i, a in enumerate(Yhb):
         out["mandrill_Yhb_%d" % i] = summarise_mat(a)
@@ -62,14 +57,12 @@ def main():
         out["mandrill_Yscaleb_%d" % i] = summarise_mat(a)
 
     # x3 bilinear highpass rescale (gen_verif.m:54-58 / cpxinterp2b)
-    Yl3, Yh3 = compat.dtwavexfm2b(mandrill, 3, "near_sym_a", "qshift_a")
-    X = Yh3[2]
+    X = R.Transform2d("near_sym_a", "qshift_a").forward(mandrill, 3)[1][2]
     out["mandrill_upsample"] = summarise_mat(
-        sampling.rescale_highpass(X, (X.shape[0] * 3, X.shape[1] * 3),
-                                  "bilinear"))
+        R.rescale_highpass(X, (X.shape[0] * 3, X.shape[1] * 3), "bilinear"))
 
     # 3-level 3-D transform on the qbgn volume (gen_verif.m:60-71)
-    t3 = Transform3d(biort="near_sym_b", qshift="qshift_b")
+    t3 = R.Transform3d(biort="near_sym_b", qshift="qshift_b")
     p3 = t3.forward(qbgn, nlevels=3, include_scale=True)
     out["qbgn_Yl"] = summarise_cube(p3.lowpass)
     for i, a in enumerate(p3.highpasses):

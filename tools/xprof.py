@@ -1,19 +1,20 @@
 #!/usr/bin/env python
 """Minimal XSpace (.xplane.pb) parser: per-op device-time summary.
 
-``jax.profiler.trace`` writes XSpace protos, but this environment's
-tensorboard_plugin_profile converter is incompatible with its TF build
-(``xspace_to_tools_data`` missing), so this parses the wire format
-directly — no proto deps.  It aggregates event durations per (line, op)
-on the device planes: the fastest way to see where a compiled program's
-device time goes (the HLO-metadata mapping discipline of
-docs/performance.md).
+``jax.profiler.trace`` writes XSpace protos; this parses the wire format
+directly, with no proto or TensorBoard dependency.  It aggregates event
+durations per (line, op) on the device planes (``/device:GPU:N``; each
+CUDA stream is one line, each kernel one event): the quickest way to see
+where a compiled program's device time goes.  :func:`hlo_fusion_bytes`
+adds the bytes each fusion of a compiled program reads and writes, taken
+from its optimized HLO text, so a kernel's time can be set against its
+byte floor.
 
 Usage:
-    python tools/xprof.py /tmp/rt_trace [--top 40] [--merge-prefix]
+    python tools/xprof.py <trace dir> [--top 40] [--merge-prefix]
 
 The reference library has no tracing/profiling subsystem (SURVEY.md §5);
-this plus scripts/profile_transform.py is the TPU build's equivalent.
+this plus scripts/profile_transform.py is this package's equivalent.
 """
 
 import argparse
@@ -87,7 +88,6 @@ def parse_xspace(path):
                 lines.append((lname, events))
             elif pf == 4 and pw == 2:          # map<int64, XEventMetadata>
                 mid = None
-                mname = None
                 for mf, mw, mv in _fields(pv):
                     if mf == 1 and mw == 0:
                         mid = mv
@@ -103,7 +103,7 @@ def parse_xspace(path):
                                 dnm = ev.decode("utf-8", "replace")
                         meta[mid if mid is not None else eid] = dnm or nm
                 if mid is not None and mid not in meta:
-                    meta[mid] = mname or ""
+                    meta[mid] = ""
         planes.append((name, meta, lines))
     return planes
 
@@ -114,7 +114,7 @@ _FUSION_N = re.compile(r"\.\d+$")
 def summarize(path, top=40, merge=False, line_filter=None):
     out = []
     for name, meta, lines in parse_xspace(path):
-        if "TPU" not in name and "/device:" not in name:
+        if "/device:" not in name:
             continue
         per_line = collections.Counter()
         per_op = collections.Counter()
@@ -131,6 +131,59 @@ def summarize(path, top=40, merge=False, line_filter=None):
                 per_op[(lname, op)] += us
                 op_count[(lname, op)] += 1
         out.append((name, per_line, per_op, op_count))
+    return out
+
+
+_ELEM_BYTES = {"pred": 1, "s8": 1, "u8": 1, "bf16": 2, "f16": 2, "s16": 2,
+               "u16": 2, "f32": 4, "s32": 4, "u32": 4, "f64": 8, "s64": 8,
+               "u64": 8, "c64": 8, "c128": 16}
+_SHAPE = re.compile(r"\b(%s)\[([\d,]*)\]" % "|".join(_ELEM_BYTES))
+_INSTR = re.compile(r"^\s*(?:ROOT )?%([\w.\-]+) = ")
+
+
+def _type_bytes(text):
+    total = 0
+    for dt, dims in _SHAPE.findall(text):
+        n = 1
+        for d in filter(None, dims.split(",")):
+            n *= int(d)
+        total += n * _ELEM_BYTES[dt]
+    return total
+
+
+def hlo_fusion_bytes(hlo_text):
+    """{kernel name: (bytes read + written, output type)} for every fusion
+    and custom call in the ENTRY computation of an optimized HLO module
+    (``jitted.lower(...).compile().as_text()``).  Each operand counts once,
+    whole, so a fusion that reads a slice of an operand is over-counted.
+    Kernel names are the instruction names with '.' -> '_', as the GPU
+    trace shows them."""
+    lines = hlo_text.splitlines()
+    start = next(i for i, l in enumerate(lines) if l.startswith("ENTRY"))
+    types, out = {}, {}
+    for line in lines[start + 1:]:
+        m = _INSTR.match(line)
+        if not m:
+            continue
+        name, rest = m.group(1), line[m.end():]
+        if rest.startswith("("):           # tuple type: up to its ')'
+            depth = 0
+            for j, ch in enumerate(rest):
+                depth += {"(": 1, ")": -1}.get(ch, 0)
+                if depth == 0:
+                    break
+            typ, rest = rest[:j + 1], rest[j + 2:]
+        else:
+            typ, _, rest = rest.partition(" ")
+        types[name] = typ
+        opcode = rest.split("(", 1)[0]
+        if opcode not in ("fusion", "custom-call"):
+            continue
+        args = rest.split("(", 1)[1].split("), ")[0]
+        ops = set(re.findall(r"%([\w.\-]+)", args))
+        nbytes = _type_bytes(typ) + sum(_type_bytes(types.get(o, ""))
+                                        for o in ops)
+        out[name.replace(".", "_")] = (nbytes, typ)
     return out
 
 
